@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card
 
-Phases, each fatal on failure (nothing is caught):
+Phases, each fatal on failure (nothing is caught), each printing its wall
+time:
 
   1. card    — the card's name and power limit (nvidia-smi).
-  2. build   — the moment-curve kernels from their CUDA source, for sm_90a.
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               over D x N x ND; bitwise-equal repeat launches; times at the
-               simulator's shapes beside the least time the card could take.
+  2. build   — one nvcc per CUDA source, all started together, for sm_90a;
+               this phase waits for the moment-curve kernels.
+  3. kernels — each moment-curve kernel against its plain PyTorch version on
+               the card, over D x N x ND; bitwise-equal repeat launches;
+               times at the simulator's shapes beside the least time the
+               card could take.
   4. main    — ``make_run`` at the paper's full scale (PAPER_FULL, the
                ``full`` preset's grid and refresh interval) for SECOND
                (rho 0.112) and ZEROTH (threshold 8,864), the paper's tuned
@@ -18,15 +21,42 @@ Phases, each fatal on failure (nothing is caught):
   5. lockstep — a card core and a CPU core on one arrival stream and the
                same per-step events: equal decisions (up to float32 ties)
                and equal final metrics.
+  6. build   — the two attention kernels (flash attention, GQA decode):
+               nvcc's register, spill and shared-memory lines.
+  7. attention kernels — each against its plain PyTorch version (flash:
+               B x S x heads x dtype x window, float32 at 2e-5 and bf16
+               within one bf16 ulp; decode: B x S x lengths x dtypes, float32
+               output at 3e-5 for either cache), bitwise-equal repeats; bf16
+               flash keeps p in float32: its outputs equal the rounded
+               float32 result where a version rounding p to bf16 does not;
+               times at llama3.2-1b's shapes beside the bound and SDPA.
+  8. LM forward — llama3.2-1b at full width (16 layers, bf16 activations,
+               weights from the port's seeded init) with the flash lane on
+               (16 kernel launches a forward) and off: logits agree at the
+               bf16 tolerance; tokens/s of both lanes; a profile of the
+               flash lane.
+  9. decode layer — layer 0's attention with the decode kernel lane against
+               the einsum lane: 64 positions from a bf16 cache of 4,096
+               slots holding 2,048, B = 4; outputs agree at every step.
+ 10. server  — ``repro_torch.launch.serve`` at its defaults (llama3.2-1b,
+               12 requests, 16 new tokens, batch 4, 256 slots): every
+               request answered, tokens/s, fused and loop prefill give equal
+               tokens; then the engine on the card against the engine on the
+               CPU at full width, 2 layers, float32: equal tokens up to
+               counted float32 ties.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
+import copy
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -35,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12     # dense bf16 tensor-core rate
 # operations per (row, grid point) and per (row, D-term checkpoint), counted
 # from csrc/moment_curves.cu: one per arithmetic instruction or math-library
 # call (log1pf, expm1f, expf, logf, division)
@@ -43,6 +74,22 @@ OPS_PER_CHECKPOINT = 35
 TOL_EL = dict(rtol=2e-4, atol=1e-5)     # tests/test_kernels.py of the JAX
 TOL_VL = dict(rtol=2e-3, atol=1e-4)     # package: its kernel tolerances
 TIE_MARGIN = 1e-4
+# attention kernels against their plain versions, by the dtype of the
+# inputs. float32 flash: the JAX package's 2e-5 (tests/test_kernels.py).
+# bf16 flash returns bf16: within one bf16 ulp (2^-7 of the value) of the
+# plain version's float32 result rounded. Decode returns float32 computed
+# from the same inputs for either cache type: the float32 limit, 3e-5.
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=8e-3, atol=1e-5)}
+DECODE_TOL = dict(rtol=3e-5, atol=3e-5)
+# bf16 flash outputs that differ from the plain version's float32 result
+# rounded to bf16: at most this share for the kernel, which keeps p in
+# float32; a version that rounds p to bf16 before P.V must exceed ten times
+# this share, or the check could not tell the two apart
+SPLIT_SHARE = 0.01
+BF16_TOL = 2e-2              # layer outputs in bf16
+F32_LOGIT_RMS = 1e-4         # float32 logits of the two attention lanes
+LOGIT_TIE = 1e-4             # float32 logits closer than this are a tie
 DEVICE = "cuda"
 
 
@@ -50,8 +97,20 @@ def log(msg):
     print(msg, flush=True)
 
 
-def phase(name):
-    log(f"== {name}")
+class phase:
+    """``with phase("3. kernels"):`` prints the phase's name, then its wall
+    time when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        log(f"== {self.name}")
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"   ({self.name}: {time.perf_counter() - self.t0:.1f} s)")
 
 
 def card_line():
@@ -343,6 +402,551 @@ def lockstep():
         f"{float(metrics[DEVICE].utilization):.4f} on both")
 
 
+def start_builds():
+    """One nvcc per CUDA source, all started together; returns the kernel
+    modules and a future per module (the seconds its build took)."""
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.moment_curves import kernel as MC
+
+    def build(mod):
+        t0 = time.perf_counter()
+        mod._library()
+        return time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(max_workers=3)
+    futures = {mod: pool.submit(build, mod) for mod in (MC, FA, DG)}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def report_build(mod, future):
+    from repro_torch.kernels._build import build_report
+
+    seconds = future.result()
+    nvcc_log, nvcc_s = build_report(mod.SOURCE)
+    log(f"built {mod.SOURCE.name} in {seconds:.2f} s (nvcc {nvcc_s:.2f} s)")
+    for line in nvcc_log.splitlines():
+        if any(w in line for w in ("registers", "spill", "smem", "error",
+                                   "Compiling entry")):
+            log("  " + line.strip())
+
+
+def randn(shape, gen, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=DEVICE,
+                       dtype=torch.float32).to(dtype)
+
+
+def dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+def sdpa(q, k, v, causal):
+    """One PyTorch call for the same attention ([B, S, H, Dh] inputs), the
+    yardstick ``library_ms``; the port never calls it."""
+    import torch.nn.functional as F
+
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def attention_bound(nbytes, flops):
+    """(bound_ms, bound_by): bytes over HBM bandwidth against operations
+    over the bf16 tensor-core peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash():
+    """Phase 7, flash: the kernel against its plain version on the card."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    worst, n = {}, 0
+    # bf16 cases: outputs off the rounded float32 result, and the sums of
+    # |out - float32 result| and |float32 result|, for the kernel and for
+    # the plain version with p rounded to bf16
+    split = {lane: dict(off=0, err=0.0) for lane in ("kernel", "p in bf16")}
+    n_bf16, scale = 0, 0.0
+    cases = [(b, s, heads, dtype, causal, window)
+             for b in (1, 2) for s in (1, 100, 128, 1000, 2048, 4096)
+             for heads in ((32, 8, 64), (8, 2, 128))
+             for dtype in (torch.bfloat16, torch.float32)
+             for causal, window in ((True, 0), (True, 1024))]
+    cases += [(2, s, (32, 8, 64), torch.bfloat16, False, 0)
+              for s in (128, 2048)]
+    for b, s, (h, kvh, dh), dtype, causal, window in cases:
+        q = randn((b, s, h, dh), gen, dtype)
+        k = randn((b, s, kvh, dh), gen, dtype)
+        v = randn((b, s, kvh, dh), gen, dtype)
+        got = FA.flash_attention_bshd(q, k, v, causal=causal, window=window)
+        again = FA.flash_attention_bshd(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash not deterministic at B={b} S={s} "
+                                 f"H={h} {dtype} window={window}")
+        # the plain version in float32 on the same values; rounded to q's
+        # dtype it is exactly ``flash_attention_ref(q, k, v)``
+        want32 = FR.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window)
+        want = want32.to(dtype)
+        name = dtype_name(dtype)
+        tol = FLASH_TOL[name]
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        worst[name] = max(worst.get(name, 0.0),
+                          tolerance_used(got.float(), want.float(), tol))
+        if dtype == torch.bfloat16:
+            rounded = FR.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window,
+                                             p_dtype=torch.bfloat16)
+            for lane, out in (("kernel", got), ("p in bf16", rounded)):
+                split[lane]["off"] += int((out != want).sum())
+                split[lane]["err"] += float((out.float() - want32).abs().sum())
+            n_bf16 += got.numel()
+            scale += float(want32.abs().sum())
+            del rounded
+        n += 1
+        del q, k, v, got, again, want, want32
+    log(f"flash_attention matches its plain version over {n} cases; largest "
+        "share of the tolerance used: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    share = {lane: s["off"] / n_bf16 for lane, s in split.items()}
+    log("bf16 outputs off the plain version's float32 result rounded to "
+        "bf16: " + ", ".join(
+            f"{lane} {share[lane]:.4e} (mean |error| / mean |output| "
+            f"{s['err'] / scale:.4e})" for lane, s in split.items())
+        + f", over {n_bf16:,} outputs")
+    if share["kernel"] > SPLIT_SHARE:
+        raise AssertionError(f"bf16 flash: {share['kernel']:.3e} of the "
+                             "outputs are off the rounded float32 result")
+    if share["p in bf16"] <= 10 * SPLIT_SHARE:
+        raise AssertionError("rounding p to bf16 moves only "
+                             f"{share['p in bf16']:.3e} of the outputs: the "
+                             "check cannot tell it from float32 p")
+
+
+def check_decode():
+    """Phase 7, decode: the kernel against its plain version on the card."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.decode_gqa import ref as DR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst, n = {}, 0
+    for b in (1, 4):
+        for s in (1, 77, 2048, 8192):
+            length_sets = ([[1], [s]] if b == 1 else
+                           [[1, s, (s + 1) // 2, 0], [s] * 4])
+            for h, kvh, dh in ((32, 8, 64), (8, 1, 128)):
+                for q_dtype, kv_dtype in ((bf16, bf16), (f32, f32),
+                                          (bf16, f32)):
+                    q = randn((b, h, dh), gen, q_dtype)
+                    k = randn((b, s, kvh, dh), gen, kv_dtype)
+                    v = randn((b, s, kvh, dh), gen, kv_dtype)
+                    for lengths in length_sets:
+                        lens = torch.tensor(lengths, dtype=torch.int32,
+                                            device=DEVICE)
+                        got = DG.decode_gqa_bshd(q, k, v, lens)
+                        again = DG.decode_gqa_bshd(q, k, v, lens)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(
+                                f"decode not deterministic at B={b} S={s}")
+                        want = DR.decode_gqa_ref(q, k, v, lens)
+                        torch.testing.assert_close(got, want, **DECODE_TOL)
+                        name = dtype_name(kv_dtype)
+                        worst[name] = max(worst.get(name, 0.0),
+                                          tolerance_used(got, want,
+                                                         DECODE_TOL))
+                        n += 1
+    log(f"decode_gqa matches its plain version over {n} cases (lengths "
+        "0, 1, S/2 and S); largest share of the tolerance used: "
+        + ", ".join(f"{k} cache {v:.3e}" for k, v in worst.items()))
+
+
+def time_attention_kernels(records):
+    """Phase 7, times at llama3.2-1b's shapes: flash at B = 2, S = 2,048,
+    causal, bf16; decode at B = 4, 2,048 valid keys of a 4,096-slot bf16
+    cache."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.decode_gqa import ref as DR
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    bf16 = torch.bfloat16
+    b, s, h, kvh, dh = 2, 2048, 32, 8, 64
+    q = randn((b, s, h, dh), gen, bf16)
+    k = randn((b, s, kvh, dh), gen, bf16)
+    v = randn((b, s, kvh, dh), gen, bf16)
+    kern = lambda: FA.flash_attention_bshd(q, k, v, causal=True)
+    plain = lambda: FR.flash_attention_ref(q, k, v, causal=True)
+    err = float((kern().float() - plain().float()).abs().max())
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * b * h * dh * (s * (s + 1) // 2)
+    b_ms, b_by = attention_bound(nbytes, flops)
+    records["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:30",
+        launches=0, max_abs_err=err, ms=event_ms(kern),
+        plain_ms=event_ms(plain, reps=10, warm=2), bound_ms=b_ms,
+        bound_by=b_by, library_ms=event_ms(lambda: sdpa(q, k, v, True)),
+        device_ms=graph_ms(kern),
+        shape=dict(B=b, S=s, H=h, KVH=kvh, Dh=dh, dtype="bfloat16",
+                   causal=True))
+    del q, k, v
+
+    b, slots, valid = 4, 4096, 2048
+    q = randn((b, h, dh), gen, bf16)
+    k = randn((b, slots, kvh, dh), gen, bf16)
+    v = randn((b, slots, kvh, dh), gen, bf16)
+    lens = torch.full((b,), valid, dtype=torch.int32, device=DEVICE)
+    kern = lambda: DG.decode_gqa_bshd(q, k, v, lens)
+    plain = lambda: DR.decode_gqa_ref(q, k, v, lens)
+    err = float((kern() - plain()).abs().max())
+    nbytes = 2 * 2 * b * valid * kvh * dh + 2 * q.numel() + 4 * q.numel()
+    flops = 4 * b * h * valid * dh
+    b_ms, b_by = attention_bound(nbytes, flops)
+    kv = (k[:, :valid], v[:, :valid])
+    records["decode_gqa"] = dict(
+        name="decode_gqa", route="cuda",
+        source="src/repro_torch/kernels/decode_gqa/csrc/decode_gqa.cu",
+        replaces="src/repro/kernels/decode_gqa/kernel.py:26",
+        launches=0, max_abs_err=err, ms=event_ms(kern),
+        plain_ms=event_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        library_ms=event_ms(lambda: sdpa(q[:, None], *kv, False)),
+        device_ms=graph_ms(kern),
+        shape=dict(B=b, slots=slots, valid=valid, H=h, KVH=kvh, Dh=dh,
+                   dtype="bfloat16"))
+    for name in ("flash_attention", "decode_gqa"):
+        r = records[name]
+        log(f"{name} at {r['shape']}: {r['ms']:.4f} ms a call "
+            f"({r['device_ms']:.4f} ms on the device, CUDA graph), plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), max abs err "
+            f"{r['max_abs_err']:.3e}")
+
+
+def profile_device(fn):
+    """(wall ms, device-busy ms, kernels launched, {kernel: device ms}) of
+    one call of ``fn``, from torch.profiler's CUDA events."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += 1e-3 * e.time_range.elapsed_us()
+    return 1e3 * wall, sum(by_name.values()), len(kernels), by_name
+
+
+def wall_s(fn, reps=3):
+    """Median host wall time of ``fn`` to a synchronised end."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def compare_logits(got, want):
+    """(max |diff|, rms diff / rms want, share of equal argmax)."""
+    got, want = got.float(), want.float()
+    rms = float((got - want).square().mean().sqrt()
+                / want.square().mean().sqrt())
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return float((got - want).abs().max()), rms, same
+
+
+def layer_by_layer(cfg, params, tokens):
+    """The flash lane's forward, with each layer's attention also run
+    through the einsum lane on the same input: the largest rms difference
+    of the two, relative to the output's rms, over the layers."""
+    import torch
+    from repro_torch.models.layers import attention, mlp, rmsnorm
+
+    acfg = cfg.attn_config()
+    x = params["embed"][tokens].to(cfg.dtype)
+    worst = 0.0
+    for p in params["layers"]:
+        h = rmsnorm(p["ln1"], x)
+        got = attention(p["attn"], acfg, h, use_kernel=True)
+        want = attention(p["attn"], acfg, h, use_kernel=False)
+        worst = max(worst, compare_logits(got, want)[1])
+        x = x + got
+        x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x))
+        torch.cuda.synchronize()
+    return worst
+
+
+def rope_long_positions(cfg):
+    """RoPE at llama3.2-1b's theta out to 8,192 positions, card against the
+    port's CPU path (the CPU tests stop at 64 positions)."""
+    import torch
+    from repro_torch.models.layers import rope
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    x = randn((1, 8192, 8, cfg.resolved_head_dim), gen, torch.float32)
+    pos = torch.arange(8192, device=DEVICE)
+    got = rope(x, pos, cfg.rope_theta).cpu()
+    err = float((got - rope(x.cpu(), pos.cpu(), cfg.rope_theta)).abs().max())
+    log(f"rope, theta {cfg.rope_theta:g}, positions < 8192, float32: card "
+        f"against CPU max |diff| {err:.3e}")
+    if err > 1e-4:
+        raise AssertionError(f"rope differs by {err:.3e}")
+
+
+def lm_forward(cfg, params, records):
+    """Phase 8: llama3.2-1b forward, flash lane on and off."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import DecoderLM
+
+    rope_long_positions(cfg)
+
+    def lanes(dtype):
+        return {lane: DecoderLM(dataclasses.replace(
+            cfg, use_flash_kernel=lane, dtype=dtype)) for lane in (True, False)}
+
+    rng = np.random.default_rng(8)
+    for b, s in ((2, 2048), (2, 1000)):
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)).to(DEVICE)
+        models = lanes(cfg.dtype)
+        torch.cuda.synchronize()
+        FA.reset_launches()
+        flash = models[True].forward(params, tokens)
+        torch.cuda.synchronize()
+        launches = FA.LAUNCHES["flash_attention"]
+        if launches != cfg.n_layers:
+            raise AssertionError(f"flash lane launched {launches} kernels, "
+                                 f"want {cfg.n_layers}")
+        if flash.shape != (b, s, cfg.vocab) or flash.dtype != cfg.dtype:
+            raise AssertionError(f"logits {flash.shape} {flash.dtype}")
+        if not bool(torch.isfinite(flash).all()):
+            raise AssertionError("non-finite logits")
+        diff, rms, same = compare_logits(
+            flash, models[False].forward(params, tokens))
+        del flash
+        layer_rms = layer_by_layer(cfg, params, tokens)
+        log(f"forward B={b} S={s}, bf16: flash lane {launches} launches; "
+            f"logits against the einsum lane: max |diff| {diff:.3e}, rms "
+            f"diff / rms {rms:.3e}, equal argmax {same:.4f}; per layer, "
+            f"attention rms diff / rms at most {layer_rms:.3e}")
+        # In bf16 the lanes round at different places (the einsum lane
+        # rounds the probabilities to bf16 before P.V, the kernel keeps
+        # them in float32, as phase 7 checks), and 16 layers carry that on
+        # to the logits. So each layer's attention is held to the bf16
+        # tolerance on the same input, and the float32 forward to a tight
+        # one.
+        if layer_rms > BF16_TOL or rms > 5 * BF16_TOL or same < 0.9:
+            raise AssertionError("bf16 lanes disagree")
+        f32 = lanes(torch.float32)
+        diff32, rms32, same32 = compare_logits(
+            f32[True].forward(params, tokens),
+            f32[False].forward(params, tokens))
+        log(f"forward B={b} S={s}, float32: logits max |diff| "
+            f"{diff32:.3e}, rms diff / rms {rms32:.3e}, equal argmax "
+            f"{same32:.4f}")
+        if rms32 > F32_LOGIT_RMS:
+            raise AssertionError(f"float32 lanes differ by {rms32:.3e}")
+        if s == 2048:
+            records["flash_attention"]["launches"] = launches
+            for lane, model in models.items():
+                secs = wall_s(lambda: model.forward(params, tokens))
+                log(f"  bf16, flash lane {'on ' if lane else 'off'}: "
+                    f"{1e3 * secs:.1f} ms a forward, {b * s / secs:.0f} "
+                    "tokens/s")
+            wall, busy, n_k, by_name = profile_device(
+                lambda: models[True].forward(params, tokens))
+            fa_ms = sum(t for k, t in by_name.items() if "flash_fwd" in k)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            log(f"  profile, flash lane: wall {wall:.1f} ms, device busy "
+                f"{busy:.1f} ms (idle share {1 - busy / wall:.3f}), {n_k} "
+                f"kernels, flash kernel {fa_ms:.1f} ms "
+                f"({fa_ms / busy:.3f} of busy); top: "
+                + "; ".join(f"{k[:60]} {t:.2f} ms" for k, t in top))
+
+
+def decode_layer(cfg, params, records):
+    """Phase 9: layer 0's attention, decode kernel lane against the einsum
+    lane, 64 positions."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.models.layers import KVCache, attention_decode
+
+    p, acfg = params["layers"][0]["attn"], cfg.attn_config()
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    b, slots, filled, steps = 4, 4096, 2048, 64
+    shape = (b, slots, acfg.n_kv_heads, acfg.head_dim)
+    k = torch.zeros(shape, dtype=torch.bfloat16, device=DEVICE)
+    v = torch.zeros_like(k)
+    k[:, :filled] = randn((b, filled, *shape[2:]), gen, torch.bfloat16)
+    v[:, :filled] = randn((b, filled, *shape[2:]), gen, torch.bfloat16)
+    length = torch.tensor(filled, dtype=torch.int32, device=DEVICE)
+    caches = {lane: KVCache(k.clone(), v.clone(), length)
+              for lane in (True, False)}
+    xs = [randn((b, 1, cfg.d_model), gen, torch.bfloat16)
+          for _ in range(steps)]
+    torch.cuda.synchronize()
+    DG.reset_launches()
+    worst = 0.0
+    for i, x in enumerate(xs):
+        out = {}
+        for lane in (True, False):
+            out[lane], caches[lane] = attention_decode(
+                p, acfg, x, caches[lane], use_kernel=lane)
+        got, want = out[True].float(), out[False].float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"step {i}: non-finite output")
+        rel = float((got - want).abs().max() / want.abs().max())
+        if rel > BF16_TOL:
+            raise AssertionError(f"step {i}: lanes differ by {rel:.3e} of "
+                                 "the largest output")
+        worst = max(worst, rel)
+    torch.cuda.synchronize()
+    launches = DG.LAUNCHES["decode_gqa"]
+    if launches != steps:
+        raise AssertionError(f"decode lane launched {launches}, want {steps}")
+    if not (torch.equal(caches[True].k, caches[False].k)
+            and int(caches[True].length) == filled + steps):
+        raise AssertionError("the lanes' caches differ")
+    records["decode_gqa"]["launches"] = launches
+    log(f"decode layer 0, B={b}, {filled} -> {filled + steps} of {slots} "
+        f"slots: {launches} kernel launches; kernel lane against einsum "
+        f"lane, largest |diff| / largest |output| {worst:.3e}")
+
+
+def server_profile(model, params, args, steps=8):
+    """Where a server decode step's time goes: ``steps`` decode steps at
+    the server's batch and float32 cache, under torch.profiler."""
+    import torch
+
+    state = {"cache": model.init_cache(args.max_batch, args.max_seq,
+                                       dtype=torch.float32, device=DEVICE)}
+    tokens = torch.arange(2, 2 + args.max_batch, device=DEVICE)
+
+    def decode():
+        for _ in range(steps):
+            _, state["cache"] = model.decode_step(params, tokens,
+                                                  state["cache"])
+
+    decode()
+    wall, busy, n_k, by_name = profile_device(decode)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  profile, server decode step (B={args.max_batch}): wall "
+        f"{wall / steps:.2f} ms, device busy {busy / steps:.2f} ms (idle "
+        f"share {1 - busy / wall:.3f}), {n_k / steps:.0f} kernels a step; "
+        "top: " + "; ".join(f"{k[:50]} {t / steps:.3f} ms" for k, t in top))
+
+
+def server(cfg, model, params):
+    """Phase 10: the launcher's server at full width, then card against
+    CPU at 2 layers in float32."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve import ServeEngine
+
+    args = S.parse_args([])
+    outs = {}
+    for mode in ("fused", "loop"):
+        reqs, done, secs = S.serve(model, params, args, cfg.vocab,
+                                   prefill_mode=mode)
+        tokens = sum(len(r.out_tokens) for r in reqs)
+        if len(done) != len(reqs) or not all(
+                r.done and 1 <= len(r.out_tokens) <= args.max_new
+                for r in reqs):
+            raise AssertionError(f"{mode}: {len(done)}/{len(reqs)} answered")
+        log(f"server ({mode} prefill): {len(done)}/{len(reqs)} requests, "
+            f"{tokens} tokens in {secs:.2f} s ({tokens / secs:.1f} tokens/s)")
+        outs[mode] = [tuple(r.out_tokens) for r in reqs]
+    if outs["fused"] != outs["loop"]:
+        raise AssertionError("fused and loop prefill give different tokens")
+    log("fused and loop prefill give equal tokens; first request -> "
+        f"{list(outs['fused'][0])}")
+    server_profile(model, params, args)
+
+    class Recording(ServeEngine):
+        def _greedy(self, logits):
+            top = torch.topk(logits, 4, dim=-1)
+            self.script.append((top.values.cpu(), top.indices.cpu()))
+            return super()._greedy(logits)
+
+    class Following(ServeEngine):
+        def _greedy(self, logits):
+            mine = super()._greedy(logits)
+            vals, idx = self.script[len(self.seen)]
+            want = idx[:, 0].numpy().astype(np.int32)
+            self.seen.append(float((torch.topk(logits, 1).values[:, 0].cpu()
+                                    - vals[:, 0]).abs().max()))
+            for row in np.flatnonzero(mine != want):
+                hit = (idx[row] == int(mine[row])).nonzero()
+                if len(hit) == 0:
+                    raise AssertionError(f"card token {mine[row]} is not in "
+                                         "the CPU's top 4")
+                margin = float(vals[row, 0] - vals[row, int(hit[0, 0])])
+                if margin >= LOGIT_TIE:
+                    raise AssertionError(f"tokens differ at margin {margin}")
+                self.ties.append(margin)
+            return want
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    small_model = DecoderLM(small)
+    p_cpu = small_model.init(torch.Generator().manual_seed(1), device="cpu")
+    p_card = copy.deepcopy(p_cpu).to(DEVICE)
+    engines = {}
+    for name, cls, p in (("cpu", Recording, p_cpu),
+                         ("card", Following, p_card)):
+        engine = cls(small_model, p, max_batch=args.max_batch,
+                     max_seq=args.max_seq)
+        engine.script = engines["cpu"].script if name == "card" else []
+        engine.seen, engine.ties = [], []
+        reqs = S.make_requests(args, small.vocab)
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        engine.reqs = reqs
+        engines[name] = engine
+    cpu, card = engines["cpu"], engines["card"]
+    if [r.out_tokens for r in cpu.reqs] != [r.out_tokens for r in card.reqs]:
+        raise AssertionError("card and CPU engines emitted different tokens")
+    margins = [float((v[:, 0] - v[:, 1]).min()) for v, _ in cpu.script]
+    log(f"card against CPU (llama3.2-1b width, 2 layers, float32, "
+        f"{len(cpu.script)} decode steps): tokens equal, {len(card.ties)} "
+        f"float32 ties (margin < {LOGIT_TIE}); smallest top-2 margin on the "
+        f"CPU {min(margins):.3e}; largest |top-1 logit| difference "
+        f"{max(card.seen):.3e}")
+
+
 def main():
     import torch
 
@@ -352,31 +956,50 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    phase("1. card")
-    card = card_line()
-    log(card)
+    # the card is compared with the CPU in float32: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    phase("2. build")
-    from repro_torch.kernels._build import build_report
-    from repro_torch.kernels.moment_curves import kernel as K
+    with phase("1. card"):
+        card = card_line()
+        log(card)
 
-    t0 = time.perf_counter()
-    K._library()
-    nvcc_log, nvcc_s = build_report(K.SOURCE)
-    log(f"built {K.SOURCE.name} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {nvcc_s:.2f} s)")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  " + line.strip())
+    with phase("2. build"):
+        builds = start_builds()
+        mc = next(iter(builds))
+        report_build(mc, builds[mc])
 
-    phase("3. kernels against their plain versions")
-    records = check_kernels()
+    with phase("3. kernels against their plain versions"):
+        records = check_kernels()
 
-    phase("4. main path at PAPER_FULL")
-    main_path(records)
+    with phase("4. main path at PAPER_FULL"):
+        main_path(records)
 
-    phase("5. card against CPU, in lockstep")
-    lockstep()
+    with phase("5. card against CPU, in lockstep"):
+        lockstep()
+
+    with phase("6. build the attention kernels"):
+        for mod, future in list(builds.items())[1:]:
+            report_build(mod, future)
+
+    with phase("7. attention kernels against their plain versions"):
+        check_flash()
+        check_decode()
+        time_attention_kernels(records)
+
+    from repro_torch.launch import serve as S
+
+    with phase("8. LM forward, llama3.2-1b at full width"):
+        cfg, model, params = S.build(S.parse_args([]))
+        log(f"{cfg.name}: {model.n_params():,} parameters (float32), "
+            f"{cfg.n_layers} layers, activations {dtype_name(cfg.dtype)}")
+        lm_forward(cfg, params, records)
+
+    with phase("9. decode layer with the kernel lane"):
+        decode_layer(cfg, params, records)
+
+    with phase("10. server"):
+        server(cfg, model, params)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

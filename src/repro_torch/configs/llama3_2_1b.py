@@ -1,0 +1,11 @@
+"""llama3.2-1b [dense] (hf:meta-llama/Llama-3.2-1B).
+
+16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256, tied embeddings,
+rope theta 500k."""
+from ..models.lm import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b", family="dense", n_layers=16, d_model=2048,
+    n_heads=32, n_kv_heads=8, d_ff=8192, vocab=128256,
+    tie_embeddings=True, rope_theta=500_000.0,
+)

@@ -68,6 +68,12 @@ def load_library(source: Path) -> ctypes.CDLL:
     return lib
 
 
+def raise_on_error(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
 def build_report(source: Path) -> tuple[str, float]:
     """(nvcc output, build seconds) of ``source``'s library in this process;
     empty and 0.0 when the library was already on disk."""

@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import load_library
+from .._build import load_library, raise_on_error
 from .ref import (N_COLS, moment_curves_agg_packed_ref,
                   moment_curves_packed_ref)
 
@@ -90,11 +90,6 @@ def _check_contiguous(params, t, idx, frac):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
 def moment_curves_packed(params: torch.Tensor, t: torch.Tensor,
                          idx: torch.Tensor, frac: torch.Tensor, nd: int):
     """Per-row curves (EL, VL), each [D, N]."""
@@ -110,7 +105,7 @@ def moment_curves_packed(params: torch.Tensor, t: torch.Tensor,
         err = lib.mc_rows(params.data_ptr(), t.data_ptr(), idx.data_ptr(),
                           frac.data_ptr(), d, n, nd, el.data_ptr(),
                           vl.data_ptr(), stream)
-    _raise_on(err, "mc_rows")
+    raise_on_error(err, "mc_rows")
     LAUNCHES["moment_curves_packed"] += 1
     return el, vl
 
@@ -137,6 +132,6 @@ def moment_curves_agg_packed(params: torch.Tensor, t: torch.Tensor,
         err = lib.mc_agg(params.data_ptr(), t.data_ptr(), idx.data_ptr(),
                          frac.data_ptr(), d, n, nd, partial.data_ptr(),
                          el.data_ptr(), vl.data_ptr(), stream)
-    _raise_on(err, "mc_agg")
+    raise_on_error(err, "mc_agg")
     LAUNCHES["moment_curves_agg_packed"] += 1
     return el, vl

@@ -44,6 +44,7 @@ from ..core.policies import (ZEROTH, PolicyParams, admit_sequential,
                              admit_sequential_verbose)
 from ..core.processes import (F32, DeploymentParams, PopulationPriors,
                               StepEvents, sample_params, sample_step_events)
+from ..device import resolve_device
 
 GLOBAL, PSEUDO, MIX_LABELED, MIX_UNLABELED = "global", "pseudo", "labeled", "unlabeled"
 AGG_FUSED, AGG_REFERENCE, AGG_KERNEL = "fused", "reference", "kernel"
@@ -135,18 +136,6 @@ def _check_ported(cfg: SimConfig):
     if cfg.telemetry:
         raise NotImplementedError(
             "telemetry=True " + _NOT_PORTED.format(_ROADMAP_TELEMETRY))
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. ``"cuda"`` (the default of every
-    entry point) raises when no card is visible: nothing drops to the CPU
-    unless the caller asks for it."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the port's "
-            "plain PyTorch lanes on the CPU")
-    return device
 
 
 def tree_to(tree, device):

@@ -1,0 +1,215 @@
+"""The plain versions of the port's attention kernels against the JAX
+package's Pallas kernels (run with ``interpret=True``, as its own tests run
+them on the CPU) and its pure-jnp oracles, on identical numpy-made inputs;
+and the port's ``ops`` entry points on the CPU.
+
+Tolerances are the JAX package's own (tests/test_kernels.py): flash
+attention 2e-5 in float32 and 2e-2 in bf16, GQA decode 3e-5 and 2e-2
+(rtol = atol). bf16 inputs are rounded once and handed to both packages, so
+both see the same values.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_gqa.ops import decode_gqa as jax_decode_gqa
+from repro.kernels.decode_gqa.ref import decode_gqa_ref as jax_decode_ref
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
+from repro_torch.kernels.decode_gqa import kernel as DK
+from repro_torch.kernels.decode_gqa import ops as DOPS
+from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as FOPS
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DECODE_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+
+def _inputs(rng, dtype, *shapes):
+    """numpy normals rounded to ``dtype``: (torch tensors, jax arrays)."""
+    ts, js = [], []
+    for shape in shapes:
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        t = t.to(getattr(torch, dtype))
+        ts.append(t)
+        js.append(jnp.asarray(t.float().numpy(), getattr(jnp, dtype)))
+    return ts, js
+
+
+def _close(got_t, want_j, tol):
+    np.testing.assert_allclose(got_t.float().numpy(),
+                               np.asarray(want_j, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# the shapes of tests/test_kernels.py's flash tests, plus a ragged S
+FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 8, 8, 128),
+                (2, 384, 4, 1, 128), (2, 200, 4, 2, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,dh", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_version_matches_jax_kernel(b, s, h, kvh, dh, dtype):
+    rng = np.random.default_rng(s + h)
+    (q, k, v), (jq, jk, jv) = _inputs(rng, dtype, (b, s, h, dh),
+                                      (b, s, kvh, dh), (b, s, kvh, dh))
+    got = flash_attention_ref(q, k, v, causal=True)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    _close(got, jax_flash(jq, jk, jv, causal=True, interpret=True), tol)
+    _close(got, jax_attn_ref(jq, jk, jv, causal=True), tol)
+
+
+@pytest.mark.parametrize("window", [64, 256])
+def test_flash_sliding_window(window):
+    rng = np.random.default_rng(window)
+    (q, k, v), (jq, jk, jv) = _inputs(rng, "float32", (1, 384, 4, 64),
+                                      (1, 384, 2, 64), (1, 384, 2, 64))
+    got = FOPS.flash_attention(q, k, v, causal=True, window=window)
+    _close(got, jax_flash(jq, jk, jv, causal=True, window=window,
+                          interpret=True), 2e-5)
+    _close(got, jax_attn_ref(jq, jk, jv, causal=True, window=window), 2e-5)
+
+
+def test_flash_non_causal_matches_and_refuses_ragged_keys():
+    rng = np.random.default_rng(3)
+    (q, k, v), (jq, jk, jv) = _inputs(rng, "float32", (1, 256, 4, 64),
+                                      (1, 256, 2, 64), (1, 256, 2, 64))
+    got = FOPS.flash_attention(q, k, v, causal=False)
+    _close(got, jax_flash(jq, jk, jv, causal=False, interpret=True), 2e-5)
+    # the JAX wrapper refuses non-causal attention over a ragged key length;
+    # the port accepts exactly the same inputs
+    for sk in (100, 200):
+        with pytest.raises(ValueError, match="non-causal"):
+            FOPS.flash_attention(q, k[:, :sk], v[:, :sk], causal=False)
+        with pytest.raises(ValueError, match="non-causal"):
+            jax_flash(jq, jk[:, :sk], jv[:, :sk], causal=False,
+                      interpret=True)
+
+
+def test_flash_launcher_takes_plain_version_on_cpu_and_checks_inputs():
+    rng = np.random.default_rng(4)
+    (q, k, v), _ = _inputs(rng, "float32", (1, 32, 4, 16), (1, 32, 2, 16),
+                           (1, 32, 2, 16))
+    before = dict(FK.LAUNCHES)
+    out = FK.flash_attention_bshd(q, k, v, causal=True)
+    assert FK.LAUNCHES == before        # the plain version launches nothing
+    assert torch.equal(out, flash_attention_ref(q, k, v, causal=True))
+    with pytest.raises(TypeError):
+        FK.flash_attention_bshd(q, k.to(torch.bfloat16), v, causal=True)
+    with pytest.raises(ValueError):
+        FK.flash_attention_bshd(q, k[..., :8], v[..., :8], causal=True)
+    with pytest.raises(ValueError):
+        FK.flash_attention_bshd(q[:, :, :3], k, v, causal=True)
+
+
+def test_flash_plain_version_with_p_in_bf16_is_told_apart():
+    """The card's check that the bf16 kernel keeps p in float32, on the CPU:
+    a float64 evaluation of the same bf16 inputs (p exact) rounds to the
+    float32 plain version's bf16 outputs but for under 1%; rounding p to
+    bf16 before P.V moves over 10% of them."""
+    rng = np.random.default_rng(12)
+    (q, k, v), _ = _inputs(rng, "bfloat16", (2, 256, 8, 64), (2, 256, 2, 64),
+                           (2, 256, 2, 64))
+    want = flash_attention_ref(q, k, v, causal=True)
+    exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                causal=True).float().to(torch.bfloat16)
+    rounded = flash_attention_ref(q, k, v, causal=True,
+                                  p_dtype=torch.bfloat16)
+    assert rounded.dtype == torch.bfloat16
+    assert float((exact != want).float().mean()) <= 0.01
+    assert float((rounded != want).float().mean()) > 0.1
+
+
+def test_flash_property_rows_are_convex_combos():
+    """max |out| <= max |v| (softmax weights sum to 1), over seeds."""
+    for seed in range(5):
+        rng = np.random.default_rng(seed)
+        (q, k, v), _ = _inputs(rng, "float32", (1, 128, 2, 64),
+                               (1, 128, 2, 64), (1, 128, 2, 64))
+        out = flash_attention_ref(q, k, v, causal=True)
+        assert float(out.abs().max()) <= float(v.abs().max()) + 1e-4
+
+
+# the shapes of tests/test_kernels.py's decode tests
+DECODE_SHAPES = [(1, 128, 4, 4, 64, 128), (2, 300, 8, 4, 64, 250),
+                 (1, 2048, 8, 1, 128, 1500), (4, 77, 4, 2, 64, 60)]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,dh,length", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_version_matches_jax_kernel(b, s, h, kvh, dh, length,
+                                                 dtype):
+    rng = np.random.default_rng(s + length)
+    (q, k, v), (jq, jk, jv) = _inputs(rng, dtype, (b, h, dh),
+                                      (b, s, kvh, dh), (b, s, kvh, dh))
+    got = DOPS.decode_gqa(q, k, v, length)
+    assert got.dtype == torch.float32 and got.shape == (b, h, dh)
+    tol = DECODE_TOL[dtype]
+    _close(got, jax_decode_gqa(jq, jk, jv, length, interpret=True), tol)
+    _close(got, jax_decode_ref(jq, jk, jv, length), tol)
+
+
+def test_decode_per_row_lengths():
+    rng = np.random.default_rng(7)
+    (q, k, v), (jq, jk, jv) = _inputs(rng, "float32", (3, 4, 64),
+                                      (3, 256, 2, 64), (3, 256, 2, 64))
+    lengths = np.asarray([10, 200, 256], np.int32)
+    got = DOPS.decode_gqa(q, k, v, torch.from_numpy(lengths))
+    _close(got, jax_decode_gqa(jq, jk, jv, jnp.asarray(lengths),
+                               interpret=True), 3e-5)
+    # one row at a time gives the same rows
+    for i, n in enumerate(lengths):
+        row = decode_gqa_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                             torch.tensor([n], dtype=torch.int32))
+        torch.testing.assert_close(got[i:i + 1], row, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("length", [1, 17, 100, 255, 256])
+def test_decode_padding_invariance(length):
+    """Keys at or past the length never affect the output."""
+    rng = np.random.default_rng(length)
+    (q, k, v), _ = _inputs(rng, "float32", (1, 4, 64), (1, 256, 2, 64),
+                           (1, 256, 2, 64))
+    out1 = DOPS.decode_gqa(q, k, v, length)
+    noise = torch.from_numpy(
+        100.0 * rng.standard_normal((1, 256, 2, 64)).astype(np.float32))
+    tail = torch.arange(256)[None, :, None, None] >= length
+    out2 = DOPS.decode_gqa(q, torch.where(tail, noise, k),
+                           torch.where(tail, noise, v), length)
+    torch.testing.assert_close(out1, out2, rtol=1e-6, atol=1e-6)
+
+
+def test_decode_length_zero_gives_zeros_like_the_tpu_kernel():
+    """A row of length 0 gives zeros, as the TPU kernel does (its pure-jnp
+    oracle gives the mean of v there)."""
+    rng = np.random.default_rng(9)
+    (q, k, v), (jq, jk, jv) = _inputs(rng, "float32", (2, 4, 64),
+                                      (2, 128, 2, 64), (2, 128, 2, 64))
+    lengths = np.asarray([0, 50], np.int32)
+    got = DOPS.decode_gqa(q, k, v, torch.from_numpy(lengths))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = np.asarray(jax_decode_gqa(jq, jk, jv, jnp.asarray(lengths),
+                                     interpret=True))
+    np.testing.assert_array_equal(want[0], 0.0)
+    _close(got[1:], want[1:], 3e-5)
+
+
+def test_decode_launcher_takes_plain_version_on_cpu_and_checks_inputs():
+    rng = np.random.default_rng(5)
+    (q, k, v), _ = _inputs(rng, "float32", (2, 4, 16), (2, 8, 2, 16),
+                           (2, 8, 2, 16))
+    lengths = torch.tensor([3, 8], dtype=torch.int32)
+    before = dict(DK.LAUNCHES)
+    out = DK.decode_gqa_bshd(q, k, v, lengths)
+    assert DK.LAUNCHES == before
+    assert torch.equal(out, decode_gqa_ref(q, k, v, lengths))
+    with pytest.raises(TypeError):
+        DK.decode_gqa_bshd(q, k, v, lengths.long())
+    with pytest.raises(TypeError):
+        DK.decode_gqa_bshd(q, k, v.to(torch.bfloat16), lengths)
+    with pytest.raises(ValueError):
+        DK.decode_gqa_bshd(q, k, v, lengths[:1])

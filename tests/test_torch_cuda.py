@@ -1,12 +1,15 @@
-"""The port's CUDA kernels and simulator on a card (marked ``cuda``; skipped
-where no card is visible). On the card:
+"""The port's CUDA kernels, simulator and LM on a card (marked ``cuda``;
+skipped where no card is visible). On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same card
-inputs (the JAX package's kernel tolerances, rtol 2e-4 on EL and 2e-3 on VL),
-and a small simulator run on the card must repeat bit for bit and conserve
-deployments.
+inputs (moment curves: the JAX package's rtol 2e-4 on EL and 2e-3 on VL;
+flash attention 2e-5 in float32 and one bf16 ulp in bf16, with p kept in
+float32; GQA decode, float32 out, 3e-5 for either cache type), and repeat
+launches must be bitwise equal. A small
+simulator run on the card must repeat bit for bit and conserve deployments,
+and a small LM on the card must match the same LM on the CPU.
 """
 import numpy as np
 import pytest
@@ -17,6 +20,11 @@ from repro_torch.core.belief import GammaBelief
 from repro_torch.kernels.moment_curves import kernel as K
 from repro_torch.kernels.moment_curves import ops
 from repro_torch.kernels.moment_curves import ref as R
+from repro_torch.kernels.decode_gqa import kernel as DG
+from repro_torch.kernels.decode_gqa import ref as DR
+from repro_torch.kernels.flash_attention import kernel as FA
+from repro_torch.kernels.flash_attention import ref as FR
+from repro_torch.models import DecoderLM, get_config
 from repro_torch.sim import make_config, make_run
 
 pytestmark = pytest.mark.cuda
@@ -78,3 +86,88 @@ def test_card_run_is_deterministic_and_conserves(card):
     assert float(m1.alive_end) == float(
         m1.arrivals_accepted - m1.slot_overflow - m1.n_departed)
     assert 0.0 < float(m1.utilization) <= 1.0
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("s,h,kvh,dh", [(100, 8, 2, 64), (256, 4, 1, 128),
+                                        (1000, 32, 8, 64)])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=2e-5, atol=2e-5)),
+    # one bf16 ulp (2^-7 of the value) of the float32 result rounded
+    (torch.bfloat16, dict(rtol=8e-3, atol=1e-5))])
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_kernel_matches_plain_version(card, s, h, kvh, dh, dtype, tol,
+                                            window):
+    gen = torch.Generator(device=card).manual_seed(s + h)
+    q = _randn(gen, (2, s, h, dh), dtype, card)
+    k = _randn(gen, (2, s, kvh, dh), dtype, card)
+    v = _randn(gen, (2, s, kvh, dh), dtype, card)
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention_bshd(q, k, v, causal=True, window=window)
+    again = FA.flash_attention_bshd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == before + 2
+    assert torch.equal(got, again)
+    want = FR.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dtype == torch.bfloat16:
+        # the kernel keeps p in float32: its outputs are the rounded float32
+        # result but for under 1%, where rounding p to bf16 moves over 10%
+        rounded = FR.flash_attention_ref(q, k, v, causal=True, window=window,
+                                         p_dtype=torch.bfloat16)
+        assert float((got != want).float().mean()) <= 0.01
+        assert float((rounded != want).float().mean()) > 0.1
+
+
+@pytest.mark.parametrize("s,h,kvh,dh", [(77, 32, 8, 64), (2048, 8, 1, 128)])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(card, s, h, kvh, dh, kv_dtype):
+    gen = torch.Generator(device=card).manual_seed(s + h)
+    q = _randn(gen, (4, h, dh), torch.bfloat16, card)
+    k = _randn(gen, (4, s, kvh, dh), kv_dtype, card)
+    v = _randn(gen, (4, s, kvh, dh), kv_dtype, card)
+    lengths = torch.tensor([0, 1, s // 2, s], dtype=torch.int32, device=card)
+    before = DG.LAUNCHES["decode_gqa"]
+    got = DG.decode_gqa_bshd(q, k, v, lengths)
+    again = DG.decode_gqa_bshd(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert DG.LAUNCHES["decode_gqa"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    # float32 outputs computed from the same inputs for either cache type
+    torch.testing.assert_close(got, DR.decode_gqa_ref(q, k, v, lengths),
+                               rtol=3e-5, atol=3e-5)
+
+
+def test_small_lm_on_card_matches_cpu(card):
+    """llama3.2-1b's heads (32 over 8, head_dim 64) at 2 layers and a small
+    vocabulary, float32, no TF32: the flash-lane forward and a few decode
+    steps on the card against the same model on the CPU."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                              vocab=512, dtype=torch.float32,
+                              use_flash_kernel=True)
+    model = DecoderLM(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    p_card = model.init(torch.Generator().manual_seed(0), device=card)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 512, (2, 96)))
+    before = FA.LAUNCHES["flash_attention"]
+    got = model.forward(p_card, tokens.to(card))
+    assert FA.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), model.forward(p_cpu, tokens),
+                               rtol=1e-4, atol=1e-4)
+    caches = {d: model.init_cache(2, 16, dtype=torch.float32, device=d)
+              for d in ("cpu", card)}
+    for t in range(8):
+        out = {}
+        for d, p in (("cpu", p_cpu), (card, p_card)):
+            out[d], caches[d] = model.decode_step(p, tokens[:, t].to(d),
+                                                  caches[d])
+        torch.testing.assert_close(out[card].cpu(), out["cpu"], rtol=1e-4,
+                                   atol=1e-4)

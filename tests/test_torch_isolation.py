@@ -36,9 +36,17 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_scan_sees_the_whole_port():
-    names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "bridge.py", "core.py", "simulator.py",
-            "kernel.py", "ops.py", "ref.py", "moments.py"} <= names
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = "src/repro_torch/"
+    assert {"chip_smoke.py", port + "bridge.py", port + "device.py",
+            port + "sim/core.py", port + "sim/simulator.py",
+            port + "core/moments.py", port + "models/layers.py",
+            port + "models/lm.py", port + "models/spec.py",
+            port + "models/registry.py", port + "serve/engine.py",
+            port + "launch/serve.py", port + "configs/llama3_2_1b.py"} <= names
+    for kernel in ("moment_curves", "flash_attention", "decode_gqa"):
+        for name in ("kernel.py", "ops.py", "ref.py"):
+            assert f"{port}kernels/{kernel}/{name}" in names
 
 
 def test_port_runs_with_jax_and_reference_blocked():
@@ -58,8 +66,40 @@ assert not any(k.split(".")[0] in ("jax", "repro") and sys.modules[k]
                for k in sys.modules)
 print("ok", float(m.utilization))
 """
+    _run_blocked(code)
+
+
+def _run_blocked(code: str):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_lm_runs_with_jax_and_reference_blocked():
+    """A reduced LM forward through both attention lanes, then one engine
+    step, with JAX and the JAX package unimportable."""
+    code = """
+import dataclasses, sys
+for name in ("jax", "jaxlib", "repro", "flax"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from repro_torch.models import DecoderLM, build_model, get_config, reduced_config
+from repro_torch.serve import Request, ServeEngine
+cfg = reduced_config(get_config("llama3.2-1b"))
+model = build_model(cfg)
+params = model.init(torch.Generator().manual_seed(0), device="cpu")
+tokens = torch.randint(0, cfg.vocab, (2, 12))
+flash = DecoderLM(dataclasses.replace(cfg, use_flash_kernel=True))
+torch.testing.assert_close(flash.forward(params, tokens),
+                           model.forward(params, tokens), rtol=1e-5, atol=1e-5)
+engine = ServeEngine(model, params, max_batch=2, max_seq=16)
+engine.submit(Request(rid=0, prompt=np.asarray([3, 4, 5], np.int32)))
+assert engine.step() == 1
+assert not any(k.split(".")[0] in ("jax", "repro") and sys.modules[k]
+               for k in sys.modules)
+print("ok")
+"""
+    _run_blocked(code)
