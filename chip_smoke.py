@@ -22,14 +22,18 @@ time:
                same per-step events: equal decisions (up to float32 ties)
                and equal final metrics.
   6. build   — the two attention kernels (flash attention, GQA decode):
-               nvcc's register, spill and shared-memory lines.
+               nvcc's register, spill, shared-memory and warning lines.
   7. attention kernels — each against its plain PyTorch version (flash:
                B x S x heads x dtype x window, float32 at 2e-5 and bf16
                within one bf16 ulp; decode: B x S x lengths x dtypes, float32
                output at 3e-5 for either cache), bitwise-equal repeats; bf16
                flash keeps p in float32: its outputs equal the rounded
                float32 result where a version rounding p to bf16 does not;
-               times at llama3.2-1b's shapes beside the bound and SDPA.
+               bf16 flash at sequence lengths around its tiles for G = 1, 4
+               and 8, on fused-QKV views (equal bits to contiguous copies),
+               and refusing a misaligned view; times at llama3.2-1b's shapes
+               (and flash at Dh = 128) beside the bound and SDPA, each also
+               in a CUDA graph.
   8. LM forward — llama3.2-1b at full width (16 layers, bf16 activations,
                weights from the port's seeded init) with the flash lane on
                (16 kernel launches a forward) and off: logits agree at the
@@ -87,6 +91,9 @@ DECODE_TOL = dict(rtol=3e-5, atol=3e-5)
 # float32; a version that rounds p to bf16 before P.V must exceed ten times
 # this share, or the check could not tell the two apart
 SPLIT_SHARE = 0.01
+# one under, at and one over each tile of the bf16 flash kernel, and 1,000
+FLASH_EDGE_S = (1, 15, 16, 17, 23, 24, 25, 31, 32, 33, 47, 48, 49, 63, 64,
+                65, 127, 128, 129, 191, 192, 193, 1000)
 BF16_TOL = 2e-2              # layer outputs in bf16
 F32_LOGIT_RMS = 1e-4         # float32 logits of the two attention lanes
 LOGIT_TIE = 1e-4             # float32 logits closer than this are a tie
@@ -428,7 +435,7 @@ def report_build(mod, future):
     log(f"built {mod.SOURCE.name} in {seconds:.2f} s (nvcc {nvcc_s:.2f} s)")
     for line in nvcc_log.splitlines():
         if any(w in line for w in ("registers", "spill", "smem", "error",
-                                   "Compiling entry")):
+                                   "warning", "Compiling entry")):
             log("  " + line.strip())
 
 
@@ -481,6 +488,14 @@ def check_flash():
              for causal, window in ((True, 0), (True, 1024))]
     cases += [(2, s, (32, 8, 64), torch.bfloat16, False, 0)
               for s in (128, 2048)]
+    # the bf16 kernel's edges: sequence lengths around its tiles (64 keys;
+    # 192 / G query positions at Dh = 64 and 128 / G at Dh = 128) for
+    # G = 1, 4 and 8
+    cases += [(1, s, heads, torch.bfloat16, True, window)
+              for s in FLASH_EDGE_S
+              for heads in ((8, 8, 64), (8, 2, 64), (32, 4, 64),
+                            (8, 8, 128), (8, 2, 128), (16, 2, 128))
+              for window in (0, 100)]
     for b, s, (h, kvh, dh), dtype, causal, window in cases:
         q = randn((b, s, h, dh), gen, dtype)
         k = randn((b, s, kvh, dh), gen, dtype)
@@ -514,6 +529,7 @@ def check_flash():
             del rounded
         n += 1
         del q, k, v, got, again, want, want32
+    fused_qkv_and_misaligned(gen)
     log(f"flash_attention matches its plain version over {n} cases; largest "
         "share of the tolerance used: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
@@ -530,6 +546,39 @@ def check_flash():
         raise AssertionError("rounding p to bf16 moves only "
                              f"{share['p in bf16']:.3e} of the outputs: the "
                              "check cannot tell it from float32 p")
+
+
+def fused_qkv_and_misaligned(gen):
+    """bf16 flash on q, k and v as views of one [B, S, H + 2 KVH, Dh]
+    tensor (a fused QKV projection's output) gives the bits it gives on
+    contiguous copies; a view TMA cannot copy is refused, and nothing is
+    launched for it."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    for b, s, h, kvh, dh in ((2, 2048, 32, 8, 64), (1, 1000, 16, 2, 128)):
+        qkv = randn((b, s, h + 2 * kvh, dh), gen, torch.bfloat16)
+        views = (qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:])
+        got = FA.flash_attention_bshd(*views, causal=True)
+        want = FA.flash_attention_bshd(*(x.contiguous() for x in views),
+                                       causal=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"fused QKV views differ from copies at "
+                                 f"H={h} Dh={dh}")
+    wide = randn((1, 64, 8, 72), gen, torch.bfloat16)
+    k = randn((1, 64, 2, 64), gen, torch.bfloat16)
+    before = FA.LAUNCHES["flash_attention"]
+    try:
+        FA.flash_attention_bshd(wide[..., 1:65], k, k, causal=True)
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            raise
+    else:
+        raise AssertionError("a misaligned bf16 view was not refused")
+    if FA.LAUNCHES["flash_attention"] != before:
+        raise AssertionError("a refused view was launched")
+    log("flash_attention on fused-QKV views: equal bits to contiguous "
+        "copies (Dh 64 and 128); a view one element off is refused")
 
 
 def check_decode():
@@ -603,7 +652,26 @@ def time_attention_kernels(records):
         plain_ms=event_ms(plain, reps=10, warm=2), bound_ms=b_ms,
         bound_by=b_by, library_ms=event_ms(lambda: sdpa(q, k, v, True)),
         device_ms=graph_ms(kern),
+        library_device_ms=graph_ms(lambda: sdpa(q, k, v, True)),
         shape=dict(B=b, S=s, H=h, KVH=kvh, Dh=dh, dtype="bfloat16",
+                   causal=True))
+    del q, k, v
+    # the Dh = 128 instance at the same operations: H = 16 over KVH = 4
+    h2, kvh2, dh2 = 16, 4, 128
+    q = randn((b, s, h2, dh2), gen, bf16)
+    k = randn((b, s, kvh2, dh2), gen, bf16)
+    v = randn((b, s, kvh2, dh2), gen, bf16)
+    kern = lambda: FA.flash_attention_bshd(q, k, v, causal=True)
+    b_ms2, b_by2 = attention_bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                                   4 * b * h2 * dh2 * (s * (s + 1) // 2))
+    records["flash_attention"]["dh128"] = dict(
+        ms=event_ms(kern), device_ms=graph_ms(kern),
+        library_ms=event_ms(lambda: sdpa(q, k, v, True)),
+        library_device_ms=graph_ms(lambda: sdpa(q, k, v, True)),
+        bound_ms=b_ms2, bound_by=b_by2,
+        max_abs_err=float((kern().float() - FR.flash_attention_ref(
+            q, k, v, causal=True).float()).abs().max()),
+        shape=dict(B=b, S=s, H=h2, KVH=kvh2, Dh=dh2, dtype="bfloat16",
                    causal=True))
     del q, k, v
 
@@ -627,15 +695,19 @@ def time_attention_kernels(records):
         plain_ms=event_ms(plain), bound_ms=b_ms, bound_by=b_by,
         library_ms=event_ms(lambda: sdpa(q[:, None], *kv, False)),
         device_ms=graph_ms(kern),
+        library_device_ms=graph_ms(lambda: sdpa(q[:, None], *kv, False)),
         shape=dict(B=b, slots=slots, valid=valid, H=h, KVH=kvh, Dh=dh,
                    dtype="bfloat16"))
-    for name in ("flash_attention", "decode_gqa"):
-        r = records[name]
+    rows = [(name, records[name]) for name in ("flash_attention",
+                                               "decode_gqa")]
+    rows.insert(1, ("flash_attention", records["flash_attention"]["dh128"]))
+    for name, r in rows:
+        plain = f"plain {r['plain_ms']:.4f} ms, " if "plain_ms" in r else ""
         log(f"{name} at {r['shape']}: {r['ms']:.4f} ms a call "
-            f"({r['device_ms']:.4f} ms on the device, CUDA graph), plain "
-            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), max abs err "
-            f"{r['max_abs_err']:.3e}")
+            f"({r['device_ms']:.4f} ms on the device, CUDA graph), {plain}"
+            f"SDPA {r['library_ms']:.4f} ms ({r['library_device_ms']:.4f} ms "
+            f"on the device), bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            f"max abs err {r['max_abs_err']:.3e}")
 
 
 def profile_device(fn):

@@ -5,8 +5,11 @@ and k/v [B, Sk, KVH, Dh] in one dtype (float32 or bfloat16) and returns
 [B, Sq, H, Dh] in that dtype. On CPU tensors it returns the plain PyTorch
 version of ``ref.py``; on CUDA tensors it launches the kernel on the current
 stream, or raises. The kernel reads its inputs through their strides (the
-head_dim stride must be 1), so nothing is transposed or padded. ``LAUNCHES``
-counts the kernel launches (the plain version adds nothing).
+head_dim stride must be 1), so nothing is transposed or padded. The bf16
+kernel copies its tiles with TMA, which needs 16-byte-aligned base addresses
+and strides: the launcher refuses a bf16 view without them rather than copy
+it. ``LAUNCHES`` counts the kernel launches (the plain version adds
+nothing).
 """
 from __future__ import annotations
 
@@ -66,6 +69,21 @@ def _check(q, k, v) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
+def check_tma_alignment(q, k, v) -> None:
+    """Raise unless q, k and v have 16-byte-aligned base addresses and
+    strides (a dimension of extent 1 is never stepped), as the bf16
+    kernel's TMA copies need."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        size = x.element_size()
+        if x.data_ptr() % 16 or any(x.stride(d) * size % 16
+                                    for d in range(3) if x.shape[d] > 1):
+            raise ValueError(
+                f"{name}: the bf16 flash kernel needs 16-byte-aligned base "
+                f"addresses and strides (TMA); got address % 16 = "
+                f"{x.data_ptr() % 16}, strides {tuple(x.stride())} of "
+                f"{size}-byte elements")
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal / sliding-window GQA attention, [B, S, H, Dh] layout."""
@@ -80,6 +98,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name}'s head_dim stride must be 1")
+    if q.dtype == torch.bfloat16:
+        check_tma_alignment(q, k, v)
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or sk == 0:
         return out.zero_()

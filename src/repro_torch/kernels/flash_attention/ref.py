@@ -29,6 +29,24 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int, device):
     return mask
 
 
+def _top_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The top 16 bits of float32 x, as float32: a bf16 value (truncated)."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def split3(p: torch.Tensor):
+    """The bf16 kernel's split of float32 p into three bf16 terms, as its
+    ``split3`` does it: keep the top 16 bits (a bf16, truncated), take the
+    remainder in float32 (exact), repeat. The second remainder has at most
+    8 significant bits, so hi + mid + lo is p exactly, and P.V run as three
+    bf16 products keeps p in float32."""
+    hi = _top_bf16(p)
+    rest = p - hi
+    mid = _top_bf16(rest)
+    lo = _top_bf16(rest - mid)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         p_dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -22,7 +22,8 @@ from repro_torch.kernels.decode_gqa import ops as DOPS
 from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FOPS
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     split3)
 
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -122,6 +123,57 @@ def test_flash_plain_version_with_p_in_bf16_is_told_apart():
     assert rounded.dtype == torch.bfloat16
     assert float((exact != want).float().mean()) <= 0.01
     assert float((rounded != want).float().mean()) > 0.1
+
+
+def _split3_values(family):
+    rng = np.random.default_rng(13)
+    if family == "uniform":
+        return rng.random(100_000, dtype=np.float32)
+    if family == "edges":
+        return np.asarray([0.0, 1.0, 0.5, 1.0 - 2.0 ** -24, 2.0 ** -24,
+                           np.float32(1.0 / 3.0)], np.float32)
+    if family == "under powers of two":
+        powers = np.float32(2.0) ** -np.arange(0, 100, dtype=np.float32)
+        return np.nextafter(powers, np.float32(0.0))
+    # down to 1e-30: p = exp(s - max) of far-off logits
+    return (10.0 ** rng.uniform(-30, 0, 100_000)).astype(np.float32)
+
+
+@pytest.mark.parametrize("family", ["uniform", "edges",
+                                    "under powers of two", "tiny"])
+def test_split3_reconstructs_float32_p_bit_for_bit(family):
+    """The bf16 kernel's three-term split of p (``ref.split3``): every term
+    is a bf16, and hi + mid + lo is the float32 p exactly, which is what
+    lets its P.V run as three bf16 products and keep p in float32."""
+    p = torch.from_numpy(_split3_values(family))
+    hi, mid, lo = split3(p)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    # each term is the top 16 bits of what is left: hi those of p itself
+    assert torch.equal(hi.view(torch.int16),
+                       (p.view(torch.int32) >> 16).to(torch.int16))
+    back = (hi.float() + mid.float()) + lo.float()
+    assert torch.equal(back.view(torch.int32), p.view(torch.int32))
+    if family == "uniform":
+        # two terms would not do: the third carries bits of most p
+        assert float(((hi.float() + mid.float()) != p).float().mean()) > 0.5
+
+
+def test_flash_tma_alignment_check():
+    """The bf16 kernel's TMA copies need 16-byte-aligned addresses and
+    strides: views of a fused [B, S, H + 2 KVH, Dh] projection pass, a view
+    one element off does not."""
+    b, s, h, kvh, dh = 1, 8, 4, 2, 64
+    qkv = torch.zeros((b, s, h + 2 * kvh, dh + 8), dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, :h, :dh], qkv[:, :, h:h + kvh, :dh],
+               qkv[:, :, h + kvh:, :dh])
+    FK.check_tma_alignment(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        FK.check_tma_alignment(qkv[:, :, :h, 1:dh + 1], k, v)
+    odd = torch.zeros((b, s, h, dh + 1), dtype=torch.bfloat16)[..., :dh]
+    with pytest.raises(ValueError, match="16-byte"):
+        FK.check_tma_alignment(odd, k, v)
+    # a dimension of extent 1 is never stepped: its stride does not matter
+    FK.check_tma_alignment(q[:, :1], k, v)
 
 
 def test_flash_property_rows_are_convex_combos():

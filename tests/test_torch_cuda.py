@@ -7,7 +7,9 @@ Each kernel is held against its plain PyTorch version on the same card
 inputs (moment curves: the JAX package's rtol 2e-4 on EL and 2e-3 on VL;
 flash attention 2e-5 in float32 and one bf16 ulp in bf16, with p kept in
 float32; GQA decode, float32 out, 3e-5 for either cache type), and repeat
-launches must be bitwise equal. A small
+launches must be bitwise equal. The bf16 flash kernel is also run at sequence
+lengths around its tiles, on views of a fused QKV tensor, and must refuse a
+view that TMA cannot copy. A small
 simulator run on the card must repeat bit for bit and conserve deployments,
 and a small LM on the card must match the same LM on the CPU.
 """
@@ -120,6 +122,61 @@ def test_flash_kernel_matches_plain_version(card, s, h, kvh, dh, dtype, tol,
                                          p_dtype=torch.bfloat16)
         assert float((got != want).float().mean()) <= 0.01
         assert float((rounded != want).float().mean()) > 0.1
+
+
+# around the bf16 kernel's tiles: 64 keys; 192 / G query positions at
+# Dh = 64 and 128 / G at Dh = 128 (G = 1, 4, 8)
+FLASH_EDGE_S = [1, 15, 16, 17, 23, 24, 25, 31, 32, 33, 47, 48, 49, 63, 64,
+                65, 127, 128, 129, 191, 192, 193, 1000]
+
+
+@pytest.mark.parametrize("s", FLASH_EDGE_S)
+@pytest.mark.parametrize("h,kvh,dh", [(4, 4, 64), (8, 2, 64), (16, 2, 64),
+                                      (4, 4, 128), (8, 2, 128),
+                                      (16, 2, 128)])
+@pytest.mark.parametrize("window", [0, 40])
+def test_flash_bf16_kernel_at_tile_edges(card, s, h, kvh, dh, window):
+    gen = torch.Generator(device=card).manual_seed(s * 7 + h + dh)
+    q = _randn(gen, (1, s, h, dh), torch.bfloat16, card)
+    k = _randn(gen, (1, s, kvh, dh), torch.bfloat16, card)
+    v = _randn(gen, (1, s, kvh, dh), torch.bfloat16, card)
+    got = FA.flash_attention_bshd(q, k, v, causal=True, window=window)
+    again = FA.flash_attention_bshd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = FR.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("h,kvh,dh", [(32, 8, 64), (16, 2, 128)])
+def test_flash_bf16_reads_fused_qkv_views(card, h, kvh, dh):
+    """q, k and v as strided views of one [B, S, H + 2 KVH, Dh] tensor, as a
+    fused QKV projection hands them over: the same bits as from contiguous
+    copies."""
+    gen = torch.Generator(device=card).manual_seed(h + dh)
+    qkv = _randn(gen, (2, 300, h + 2 * kvh, dh), torch.bfloat16, card)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    got = FA.flash_attention_bshd(q, k, v, causal=True)
+    copies = FA.flash_attention_bshd(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True)
+    assert torch.equal(got, copies)
+    want = FR.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-5)
+
+
+def test_flash_bf16_refuses_misaligned_views(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = _randn(gen, (1, 64, 8, 72), torch.bfloat16, card)
+    k = _randn(gen, (1, 64, 2, 64), torch.bfloat16, card)
+    before = FA.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention_bshd(x[..., 1:65], k, k, causal=True)
+    odd = _randn(gen, (1, 64, 8, 65), torch.bfloat16, card)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention_bshd(odd, k, k, causal=True)
+    assert FA.LAUNCHES["flash_attention"] == before
 
 
 @pytest.mark.parametrize("s,h,kvh,dh", [(77, 32, 8, 64), (2048, 8, 1, 128)])
