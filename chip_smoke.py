@@ -31,9 +31,14 @@ time:
                float32 result where a version rounding p to bf16 does not;
                bf16 flash at sequence lengths around its tiles for G = 1, 4
                and 8, on fused-QKV views (equal bits to contiguous copies),
-               and refusing a misaligned view; times at llama3.2-1b's shapes
-               (and flash at Dh = 128) beside the bound and SDPA, each also
-               in a CUDA graph.
+               and refusing a misaligned view; decode (one cluster launch a
+               call) at lengths around its key tile and split share for
+               G = 1-16, Dh = 64/128/256, every q/cache dtype pairing,
+               refusing a misaligned view, and one CUDA kernel a call
+               under torch.profiler; times at llama3.2-1b's
+               shapes (and flash at Dh = 128) beside the bound and SDPA,
+               each also in a CUDA graph, and decode also cold (a graph
+               over 6 caches in turn, 100 MB of valid K/V).
   8. LM forward — llama3.2-1b at full width (16 layers, bf16 activations,
                weights from the port's seeded init) with the flash lane on
                (16 kernel launches a forward) and off: logits agree at the
@@ -94,6 +99,9 @@ SPLIT_SHARE = 0.01
 # one under, at and one over each tile of the bf16 flash kernel, and 1,000
 FLASH_EDGE_S = (1, 15, 16, 17, 23, 24, 25, 31, 32, 33, 47, 48, 49, 63, 64,
                 65, 127, 128, 129, 191, 192, 193, 1000)
+# distinct caches the cold decode timing takes in turn: 6 x 16.8 MB of
+# valid K/V at the timed shape, twice the H100's 50 MB L2
+COLD_CACHES = 6
 BF16_TOL = 2e-2              # layer outputs in bf16
 F32_LOGIT_RMS = 1e-4         # float32 logits of the two attention lanes
 LOGIT_TIE = 1e-4             # float32 logits closer than this are a tie
@@ -169,18 +177,22 @@ def event_ms(fn, reps=60, warm=10):
 
 def graph_ms(fn, reps=50, replays=7):
     """Device time of one call: ``reps`` calls captured in a CUDA graph,
-    median replay time over ``reps``."""
+    median replay time over ``reps``. ``fn`` may be a list of calls, which
+    the graph takes in turn (call i is ``fn[i % len(fn)]``): on inputs whose
+    bytes together exceed the L2 cache, that times the calls cold."""
     import torch
 
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     times = []
     for _ in range(replays):
         start = torch.cuda.Event(enable_timing=True)
@@ -619,6 +631,140 @@ def check_decode():
     log(f"decode_gqa matches its plain version over {n} cases (lengths "
         "0, 1, S/2 and S); largest share of the tolerance used: "
         + ", ".join(f"{k} cache {v:.3e}" for k, v in worst.items()))
+    decode_edges(gen)
+    decode_misaligned_and_one_kernel(gen)
+
+
+def decode_case(q, k, v, lengths, worst):
+    """One decode case: bitwise repeat, zeros at length 0, the plain version
+    at DECODE_TOL; records the share of the tolerance used."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.decode_gqa import ref as DR
+
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    got = DG.decode_gqa_bshd(q, k, v, lens)
+    again = DG.decode_gqa_bshd(q, k, v, lens)
+    torch.cuda.synchronize()
+    where = (f"B={q.shape[0]} H={q.shape[1]} KVH={k.shape[2]} "
+             f"Dh={q.shape[2]} q {dtype_name(q.dtype)} cache "
+             f"{dtype_name(k.dtype)} lengths {lengths}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"decode not deterministic at {where}")
+    for row, n in enumerate(lengths):
+        if n == 0 and bool(got[row].any()):
+            raise AssertionError(f"decode: a row of length 0 is not zeros "
+                                 f"at {where}")
+    want = DR.decode_gqa_ref(q, k, v, lens)
+    torch.testing.assert_close(got, want, **DECODE_TOL, msg=lambda m: (
+        f"decode at {where}: {m}"))
+    name = f"{dtype_name(k.dtype)} cache"
+    worst[name] = max(worst.get(name, 0.0),
+                      tolerance_used(got, want, DECODE_TOL))
+
+
+def decode_edges(gen):
+    """Phase 7, decode at the edges of the cluster kernel: G = 1, 2, 4, 8,
+    16; Dh = 64, 128, 256; each pairing of a bf16 / float32 query and cache;
+    B = 4 and 1; lengths 0, 1, one under, at and one over a key tile and a
+    split's share (8 splits x tile), S/2 and S."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.decode_gqa import ref as DR
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    lib = DG._library()
+    worst, n, s, h = {}, 0, 2560, 16
+    for g in (1, 2, 4, 8, 16):
+        for dh in (64, 128, 256):
+            for q_dtype, kv_dtype in ((bf16, bf16), (f32, f32), (bf16, f32),
+                                      (f32, bf16)):
+                kvh = h // g
+                q = randn((4, h, dh), gen, q_dtype)
+                k = randn((4, s, kvh, dh), gen, kv_dtype)
+                v = randn((4, s, kvh, dh), gen, kv_dtype)
+                tile = DR.key_tile(k.element_size(), dh)
+                if lib.dg_key_tile(k.element_size(), dh) != tile:
+                    raise AssertionError("ref.key_tile disagrees with the "
+                                         f"kernel's at Dh={dh}")
+                share = DG.N_SPLITS * tile
+                edges = [min(x, s) for x in (
+                    0, 1, tile - 1, tile, tile + 1, share - 1, share,
+                    share + 1, s // 2, s, s - 1, 0)]
+                for i in range(0, len(edges), 4):
+                    decode_case(q, k, v, edges[i:i + 4], worst)
+                    n += 1
+                for length in (tile + 1, s):
+                    decode_case(q[:1], k[:1], v[:1], [length], worst)
+                    n += 1
+                del q, k, v
+    log(f"decode_gqa at the cluster kernel's edges: {n} more cases (G 1-16, "
+        "Dh 64/128/256, bf16/float32 q and cache, B 4 and 1, lengths "
+        "around the key tile and the split share) match; "
+        "largest share of the tolerance used: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def decode_misaligned_and_one_kernel(gen):
+    """A cache view that the 16-byte loads cannot read is refused, and
+    nothing is launched for it; one call is one CUDA kernel."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+
+    q = randn((2, 8, 64), gen, torch.bfloat16)
+    wide = randn((2, 128, 2, 72), gen, torch.bfloat16)
+    lens = torch.tensor([5, 128], dtype=torch.int32, device=DEVICE)
+    before = DG.LAUNCHES["decode_gqa"]
+    try:
+        DG.decode_gqa_bshd(q, wide[..., 1:65], wide[..., :64], lens)
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            raise
+    else:
+        raise AssertionError("a misaligned decode cache was not refused")
+    if DG.LAUNCHES["decode_gqa"] != before:
+        raise AssertionError("a refused decode view was launched")
+    b, h, kvh, dh, slots = 4, 32, 8, 64, 4096
+    q = randn((b, h, dh), gen, torch.bfloat16)
+    k = randn((b, slots, kvh, dh), gen, torch.bfloat16)
+    lens = torch.tensor([2048, 1, 0, slots], dtype=torch.int32,
+                        device=DEVICE)
+    names, traces = kernels_of_one_call(
+        lambda: DG.decode_gqa_bshd(q, k, k, lens))
+    if len(names) != 1 or "decode_cluster_kernel" not in names[0]:
+        raise AssertionError(f"a decode call ran {len(names)} CUDA kernels: "
+                             f"{names}")
+    log("decode_gqa: a view one element off is refused; one call is one "
+        f"CUDA kernel ({names[0][:60]}; profiler traces taken: {traces})")
+
+
+def kernels_of_one_call(fn, traces=3):
+    """(names of the CUDA kernels that one call of ``fn`` runs, traces
+    taken), from torch.profiler's CUDA events: the profiler's schedule runs
+    ``fn`` once as a warm-up step, whose trace it discards, then once
+    traced. The traced step's own marker (``ProfilerStep*``) is an event on
+    the device too; a trace without it recorded nothing of the device and
+    says nothing of the call, so it is taken again, at most ``traces``
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for n in range(1, traces + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(x.startswith("ProfilerStep") for x in device):
+            return [x for x in device if not x.startswith("ProfilerStep")], n
+    raise AssertionError(f"torch.profiler recorded nothing of the device in "
+                         f"{traces} traces")
 
 
 def time_attention_kernels(records):
@@ -687,6 +833,13 @@ def time_attention_kernels(records):
     flops = 4 * b * h * valid * dh
     b_ms, b_by = attention_bound(nbytes, flops)
     kv = (k[:, :valid], v[:, :valid])
+    # cold: the graph takes COLD_CACHES distinct caches in turn, whose valid
+    # K/V together exceed the 50 MB L2
+    caches = [(randn(k.shape, gen, bf16), randn(v.shape, gen, bf16))
+              for _ in range(COLD_CACHES)]
+    cold_bytes = COLD_CACHES * 2 * 2 * b * valid * kvh * dh
+    if cold_bytes <= 50e6:
+        raise AssertionError(f"cold caches hold {cold_bytes:,} valid bytes")
     records["decode_gqa"] = dict(
         name="decode_gqa", route="cuda",
         source="src/repro_torch/kernels/decode_gqa/csrc/decode_gqa.cu",
@@ -696,18 +849,36 @@ def time_attention_kernels(records):
         library_ms=event_ms(lambda: sdpa(q[:, None], *kv, False)),
         device_ms=graph_ms(kern),
         library_device_ms=graph_ms(lambda: sdpa(q[:, None], *kv, False)),
+        device_ms_cold=graph_ms([
+            lambda kc=kc, vc=vc: DG.decode_gqa_bshd(q, kc, vc, lens)
+            for kc, vc in caches]),
+        library_device_ms_cold=graph_ms([
+            lambda kc=kc, vc=vc: sdpa(q[:, None], kc[:, :valid],
+                                      vc[:, :valid], False)
+            for kc, vc in caches]),
+        cold_valid_bytes=cold_bytes,
+        clusters_needed=b * kvh,
+        clusters_resident=DG.max_active_clusters(),
         shape=dict(B=b, slots=slots, valid=valid, H=h, KVH=kvh, Dh=dh,
                    dtype="bfloat16"))
+    del caches
     rows = [(name, records[name]) for name in ("flash_attention",
                                                "decode_gqa")]
     rows.insert(1, ("flash_attention", records["flash_attention"]["dh128"]))
     for name, r in rows:
         plain = f"plain {r['plain_ms']:.4f} ms, " if "plain_ms" in r else ""
+        cold = (f"; cold ({COLD_CACHES} caches in turn, "
+                f"{r['cold_valid_bytes'] / 1e6:.1f} MB valid) "
+                f"{r['device_ms_cold']:.4f} ms on the device, SDPA "
+                f"{r['library_device_ms_cold']:.4f}; {r['clusters_needed']} "
+                f"clusters of {DG.N_SPLITS} a call, {r['clusters_resident']} "
+                "resident at once"
+                if "device_ms_cold" in r else "")
         log(f"{name} at {r['shape']}: {r['ms']:.4f} ms a call "
             f"({r['device_ms']:.4f} ms on the device, CUDA graph), {plain}"
             f"SDPA {r['library_ms']:.4f} ms ({r['library_device_ms']:.4f} ms "
-            f"on the device), bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
-            f"max abs err {r['max_abs_err']:.3e}")
+            f"on the device){cold}, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}")
 
 
 def profile_device(fn):

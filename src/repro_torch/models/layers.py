@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from .spec import P
 
 F32 = torch.float32
@@ -202,7 +203,10 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(batch: int, max_seq: int, cfg: AttnConfig,
-                  dtype=torch.bfloat16, device="cpu") -> KVCache:
+                  dtype=torch.bfloat16, device="cuda") -> KVCache:
+    """An empty cache on ``device`` (the card unless the caller asks for the
+    CPU; raises without CUDA, as every entry point does)."""
+    device = resolve_device(device)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),

@@ -19,7 +19,9 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro_torch.kernels.decode_gqa import kernel as DK
 from repro_torch.kernels.decode_gqa import ops as DOPS
-from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+from repro_torch.kernels.decode_gqa.ref import (decode_gqa_ref,
+                                                decode_gqa_split_ref,
+                                                key_tile, split_bounds)
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FOPS
 from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
@@ -265,3 +267,91 @@ def test_decode_launcher_takes_plain_version_on_cpu_and_checks_inputs():
         DK.decode_gqa_bshd(q, k, v.to(torch.bfloat16), lengths)
     with pytest.raises(ValueError):
         DK.decode_gqa_bshd(q, k, v, lengths[:1])
+
+
+def test_decode_key_tile_and_split_bounds():
+    """The kernel's key tile: 4 warps x keys a warp instruction covers (32
+    over 8 to 32 lanes a key) x 4 pieces a lane (2 keys past 32 pieces a
+    row); each split's share is ceil(len / splits) rounded up to it,
+    contiguous, in rank order."""
+    assert key_tile(2, 64) == 64 and key_tile(4, 64) == 32
+    assert key_tile(2, 128) == 32 and key_tile(2, 256) == 16
+    assert key_tile(4, 256) == 8 and key_tile(2, 16) == 64
+    # llama3.2-1b's timed shape: 2,048 valid keys, 256 a CTA
+    assert split_bounds(2048, 8, 128) == [(256 * r, 256 * (r + 1))
+                                          for r in range(8)]
+    assert split_bounds(100, 8, 128) == [(0, 100)] + [(100, 100)] * 7
+    assert split_bounds(0, 16, 64) == [(0, 0)] * 16
+    for length in range(0, 700, 7):
+        bounds = split_bounds(length, 8, 64)
+        assert bounds[0][0] == 0 and bounds[-1][1] == length
+        assert all(e0 == b1 for (_, e0), (b1, _) in zip(bounds, bounds[1:]))
+
+
+# (B, S, H, KVH, Dh, lengths, dtype): empty shares (short rows), lengths
+# 0, 1 and S, one under, at and one over a tile and a split's share
+SPLIT_CASES = [
+    (4, 300, 8, 2, 64, [0, 1, 300, 150], "float32"),
+    (4, 1100, 4, 1, 64, [511, 513, 1023, 1025], "bfloat16"),
+    (2, 1100, 8, 4, 64, [63, 65], "bfloat16"),
+    (1, 70, 4, 4, 128, [64], "float32"),
+    (3, 520, 16, 1, 16, [65, 0, 520], "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("n_splits", [8, 16])
+@pytest.mark.parametrize("b,s,h,kvh,dh,lengths,dtype", SPLIT_CASES)
+def test_decode_split_emulation_matches_ref_and_jax(b, s, h, kvh, dh,
+                                                   lengths, dtype, n_splits):
+    """The kernel's partition (splits' (m, l, acc) combined in rank order)
+    gives the plain version and the JAX Pallas kernel at 3e-5."""
+    rng = np.random.default_rng(s + h + n_splits)
+    (q, k, v), (jq, jk, jv) = _inputs(rng, dtype, (b, h, dh),
+                                      (b, s, kvh, dh), (b, s, kvh, dh))
+    lens = np.asarray(lengths, np.int32)
+    got = decode_gqa_split_ref(q, k, v, torch.from_numpy(lens), n_splits)
+    assert got.dtype == torch.float32 and got.shape == (b, h, dh)
+    torch.testing.assert_close(got, decode_gqa_ref(q, k, v,
+                                                   torch.from_numpy(lens)),
+                               rtol=3e-5, atol=3e-5)
+    want = np.asarray(jax_decode_gqa(jq, jk, jv, jnp.asarray(lens),
+                                     interpret=True))
+    _close(got, want, 3e-5)
+    for row, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(got[row], torch.zeros_like(got[row]))
+
+
+def test_decode_split_emulation_over_random_lengths():
+    """Over seeds: random per-row lengths (0 to S), 8 or 16 splits and the
+    tile of a bf16 or float32 cache; the split emulation gives the plain
+    version at 3e-5."""
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        dtype = ("float32", "bfloat16")[seed % 2]
+        (q, k, v), _ = _inputs(rng, dtype, (4, 8, 32), (4, 400, 2, 32),
+                               (4, 400, 2, 32))
+        lens = torch.from_numpy(rng.integers(0, 401, 4).astype(np.int32))
+        n_splits = (8, 16)[seed // 3]
+        tile = int(rng.choice([16, 32, 64]))
+        got = decode_gqa_split_ref(q, k, v, lens, n_splits, tile)
+        torch.testing.assert_close(got, decode_gqa_ref(q, k, v, lens),
+                                   rtol=3e-5, atol=3e-5)
+
+
+def test_decode_alignment_check():
+    """The kernel reads K and V rows in 16-byte vectors: a cache and views
+    of a wider cache pass, a view one element off, a row stride that is not
+    a multiple of 16 bytes and a row of 12 bytes do not."""
+    cache = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16)
+    DK.check_alignment(cache, cache)
+    DK.check_alignment(cache[:, :, 1:3], cache[:, :8])
+    with pytest.raises(ValueError, match="16-byte"):
+        DK.check_alignment(cache[..., 1:33], cache)
+    odd = torch.zeros((2, 16, 4, 65), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        DK.check_alignment(cache, odd)
+    with pytest.raises(ValueError, match="16-byte"):
+        DK.check_alignment(torch.zeros((2, 16, 4, 3)), cache)
+    # a dimension of extent 1 is never stepped: its stride does not matter
+    DK.check_alignment(odd[:1, :1, :1], cache)

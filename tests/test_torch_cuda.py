@@ -7,7 +7,9 @@ Each kernel is held against its plain PyTorch version on the same card
 inputs (moment curves: the JAX package's rtol 2e-4 on EL and 2e-3 on VL;
 flash attention 2e-5 in float32 and one bf16 ulp in bf16, with p kept in
 float32; GQA decode, float32 out, 3e-5 for either cache type), and repeat
-launches must be bitwise equal. The bf16 flash kernel is also run at sequence
+launches must be bitwise equal. The decode kernel is also run at lengths
+around its key tile and split share, must refuse a misaligned view, and
+must be one CUDA kernel a call. The bf16 flash kernel is also run at sequence
 lengths around its tiles, on views of a fused QKV tensor, and must refuse a
 view that TMA cannot copy. A small
 simulator run on the card must repeat bit for bit and conserve deployments,
@@ -179,24 +181,96 @@ def test_flash_bf16_refuses_misaligned_views(card):
     assert FA.LAUNCHES["flash_attention"] == before
 
 
-@pytest.mark.parametrize("s,h,kvh,dh", [(77, 32, 8, 64), (2048, 8, 1, 128)])
+@pytest.mark.parametrize("s,h,kvh,dh", [
+    (77, 32, 8, 64), (2048, 8, 1, 128),
+    # G = 1, 2, 8 and 16, Dh = 256
+    (1500, 8, 8, 64), (1500, 16, 8, 128), (1500, 32, 4, 64),
+    (3000, 16, 1, 64), (1200, 8, 2, 256)])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain_version(card, s, h, kvh, dh, kv_dtype):
     gen = torch.Generator(device=card).manual_seed(s + h)
     q = _randn(gen, (4, h, dh), torch.bfloat16, card)
     k = _randn(gen, (4, s, kvh, dh), kv_dtype, card)
     v = _randn(gen, (4, s, kvh, dh), kv_dtype, card)
-    lengths = torch.tensor([0, 1, s // 2, s], dtype=torch.int32, device=card)
+    tile = DR.key_tile(k.element_size(), dh)
+    assert DG._library().dg_key_tile(k.element_size(), dh) == tile
+    share = DG.N_SPLITS * tile
+    length_sets = [[0, 1, s // 2, s],
+                   # one under, at and one over a tile and a split's share
+                   [min(n, s) for n in (tile - 1, tile, tile + 1, share + 1)],
+                   [min(n, s) for n in (share - 1, share, s - 1, 2)]]
+    for lengths in length_sets:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
+        before = DG.LAUNCHES["decode_gqa"]
+        got = DG.decode_gqa_bshd(q, k, v, lengths)
+        again = DG.decode_gqa_bshd(q, k, v, lengths)
+        torch.cuda.synchronize()
+        assert DG.LAUNCHES["decode_gqa"] == before + 2
+        assert torch.equal(got, again)
+        for row, n in enumerate(lengths.tolist()):
+            if n == 0:
+                assert torch.equal(got[row], torch.zeros_like(got[row]))
+        # float32 outputs computed from the same inputs for either cache
+        want = DR.decode_gqa_ref(q, k, v, lengths)
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+        torch.testing.assert_close(
+            DR.decode_gqa_split_ref(q, k, v, lengths, DG.N_SPLITS), want,
+            rtol=3e-5, atol=3e-5)
+
+
+def test_decode_refuses_misaligned_views(card):
+    gen = torch.Generator(device=card).manual_seed(4)
+    q = _randn(gen, (2, 8, 64), torch.bfloat16, card)
+    wide = _randn(gen, (2, 128, 2, 72), torch.bfloat16, card)
+    k = _randn(gen, (2, 128, 2, 64), torch.bfloat16, card)
+    lengths = torch.tensor([5, 128], dtype=torch.int32, device=card)
     before = DG.LAUNCHES["decode_gqa"]
-    got = DG.decode_gqa_bshd(q, k, v, lengths)
-    again = DG.decode_gqa_bshd(q, k, v, lengths)
-    torch.cuda.synchronize()
-    assert DG.LAUNCHES["decode_gqa"] == before + 2
-    assert torch.equal(got, again)
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
-    # float32 outputs computed from the same inputs for either cache type
-    torch.testing.assert_close(got, DR.decode_gqa_ref(q, k, v, lengths),
-                               rtol=3e-5, atol=3e-5)
+    with pytest.raises(ValueError, match="16-byte"):
+        DG.decode_gqa_bshd(q, wide[..., 1:65], k, lengths)
+    odd = _randn(gen, (2, 128, 2, 65), torch.bfloat16, card)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        DG.decode_gqa_bshd(q, k, odd, lengths)
+    assert DG.LAUNCHES["decode_gqa"] == before
+    # an aligned view of the wider cache is read in place
+    view = wide[..., :64]
+    torch.testing.assert_close(
+        DG.decode_gqa_bshd(q, view, view, lengths),
+        DR.decode_gqa_ref(q, view, view, lengths), rtol=3e-5, atol=3e-5)
+
+
+def test_decode_call_is_one_kernel(card):
+    """A call launches one CUDA kernel and nothing else (no combine kernel,
+    no scratch). The profiler's schedule runs the call once as a warm-up
+    step, whose trace it discards, then once traced. The traced step's own
+    marker (``ProfilerStep*``) is an event on the device too; a trace
+    without it recorded nothing of the device, and is taken again (at most
+    three traces)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = _randn(gen, (4, 32, 64), torch.bfloat16, card)
+    k = _randn(gen, (4, 1024, 8, 64), torch.bfloat16, card)
+    lengths = torch.tensor([1024, 7, 0, 512], dtype=torch.int32, device=card)
+    DG.decode_gqa_bshd(q, k, k, lengths)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                DG.decode_gqa_bshd(q, k, k, lengths)
+                torch.cuda.synchronize()
+                prof.step()
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(x.startswith("ProfilerStep") for x in device):
+            break
+    else:
+        pytest.fail("torch.profiler recorded nothing of the device in 3 "
+                    "traces")
+    kernels = [x for x in device if not x.startswith("ProfilerStep")]
+    assert len(kernels) == 1 and "decode_cluster_kernel" in kernels[0], \
+        kernels
 
 
 def test_small_lm_on_card_matches_cpu(card):

@@ -114,7 +114,7 @@ def _decode_both(jcfg, tcfg, steps, size, use_kernel, seed=4):
     rng = np.random.default_rng(seed)
     jp, tp = _attn_params(rng, tcfg)
     jc = JL.init_kv_cache(2, size, jcfg, jnp.float32)
-    tc = TL.init_kv_cache(2, size, tcfg, torch.float32)
+    tc = TL.init_kv_cache(2, size, tcfg, torch.float32, device="cpu")
     outs = []
     for _ in range(steps):
         x = _arr(rng, 2, 1, 64)
@@ -181,6 +181,19 @@ def test_gelu_is_the_tanh_form():
     _close(got[0, 0], jax.nn.gelu(jnp.asarray(x)))
     exact = torch.nn.functional.gelu(torch.from_numpy(x))
     assert float((got[0, 0] - exact).abs().max()) > 1e-4
+
+
+def test_init_kv_cache_runs_on_the_card_unless_asked_for_the_cpu(
+        monkeypatch):
+    """Without ``device`` the cache goes to the card, and without a card
+    that raises, as every entry point does; ``device="cpu"`` works."""
+    _, tcfg = _cfgs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TL.init_kv_cache(2, 8, tcfg, torch.float32)
+    cache = TL.init_kv_cache(2, 8, tcfg, torch.float32, device="cpu")
+    assert cache.k.device.type == "cpu" and cache.v.shape == (2, 8, 2, 16)
+    assert int(cache.length) == 0 and not bool(cache.k.any())
 
 
 def test_kv_cache_crosses_the_bridge():
