@@ -9,18 +9,25 @@ time:
   1. card    — the card's name and power limit (nvidia-smi).
   2. build   — one nvcc per CUDA source, all started together, for sm_90a;
                this phase waits for the moment-curve kernels.
-  3. kernels — each moment-curve kernel against its plain PyTorch version on
-               the card, over D x N x ND; bitwise-equal repeat launches;
-               times at the simulator's shapes beside the least time the
-               card could take.
+  3. kernels — both moment-curve kernels in both forms (belief columns in,
+               the main path's; packed rows, the TPU kernel's interface)
+               against their plain PyTorch versions on the card, over
+               D x N x ND; bitwise-equal repeat launches; the aggregate's
+               registers and CTAs an SM; an empty kernel in a CUDA graph
+               (the launch floor); times at the simulator's shapes beside
+               the least time the card could take, and a call of each
+               ``ops`` entry point against the packed path it replaced
+               (pack + grids + packed launch).
   4. main    — ``make_run`` at the paper's full scale (PAPER_FULL, the
                ``full`` preset's grid and refresh interval) for SECOND
                (rho 0.112) and ZEROTH (threshold 8,864), the paper's tuned
                values; the launch counters show the SECOND run went through
-               both kernels (365 aggregate and 4,380 candidate launches).
+               both belief-form kernels (365 aggregate and 4,380 candidate
+               launches) and no packed one.
   5. lockstep — a card core and a CPU core on one arrival stream and the
                same per-step events: equal decisions (up to float32 ties)
-               and equal final metrics.
+               and equal final metrics; the refreshed aggregate's largest
+               relative gap, card against CPU.
   6. build   — the two attention kernels (flash attention, GQA decode):
                nvcc's register, spill, shared-memory and warning lines.
   7. attention kernels — each against its plain PyTorch version (flash:
@@ -75,11 +82,17 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12     # dense bf16 tensor-core rate
-# operations per (row, grid point) and per (row, D-term checkpoint), counted
-# from csrc/moment_curves.cu: one per arithmetic instruction or math-library
-# call (log1pf, expm1f, expf, logf, division)
+# operations per (row, grid point), per (row, D-term checkpoint) and per
+# row's pack (belief form), counted from csrc/moment_curves.cu: one per
+# arithmetic instruction or math-library call (log1pf, expm1f, expf, logf,
+# lgammaf, division)
 OPS_PER_POINT = 75
 OPS_PER_CHECKPOINT = 35
+OPS_PER_PACK = 46
+# the refreshed aggregate's largest relative gap, card against CPU, that
+# phase 5 showed with the first CUDA kernels, which took rows packed on the
+# host (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+AGG_REL_HOST_PACKED = 1.288e-3
 TOL_EL = dict(rtol=2e-4, atol=1e-5)     # tests/test_kernels.py of the JAX
 TOL_VL = dict(rtol=2e-3, atol=1e-4)     # package: its kernel tolerances
 TIE_MARGIN = 1e-4
@@ -136,11 +149,12 @@ def card_line():
     return out[0]
 
 
-def packed_case(d, n, nd, seed, device):
-    """Packed rows of ``d`` numpy-made beliefs and the launcher grids."""
+def belief_case(d, n, nd, seed, device):
+    """``d`` numpy-made beliefs, cores and alive flags, and the kernels'
+    grid (a ``CurveGrid``), on ``device``."""
     import numpy as np
     import torch
-    from repro_torch.core import AZURE_PRIORS, geometric_grid
+    from repro_torch.core import geometric_grid
     from repro_torch.core.belief import GammaBelief
     from repro_torch.kernels.moment_curves import ops
 
@@ -151,10 +165,36 @@ def packed_case(d, n, nd, seed, device):
                       lam_b=e(0.45), sig_a=e(0.26), sig_b=e(0.055))
     cores = torch.from_numpy((1.0 + rng.poisson(5.0, d)).astype(np.float32))
     alive = torch.from_numpy(rng.random(d) < 0.6)
-    params = ops._pack(bel, cores, AZURE_PRIORS, alive=alive).to(device)
-    t, idx, frac = ops._grids(geometric_grid(6.0, 78_840.0, n, device=device),
-                              nd)
-    return params, t, idx, frac
+    grid = geometric_grid(6.0, 78_840.0, n, device=device)
+    return (GammaBelief(*(x.to(device) for x in bel)), cores.to(device),
+            alive.to(device), grid, ops.curve_grid(grid, nd))
+
+
+def kernel_calls(d, n, nd, seed, device):
+    """{kernel name: (launcher, plain version, arguments)} of both forms of
+    both kernels on one case."""
+    from repro_torch.core import AZURE_PRIORS
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.kernels.moment_curves import ref as R
+
+    bel, cores, alive, _, (t, idx, frac, _) = belief_case(d, n, nd, seed,
+                                                          device)
+    params = R.pack_rows(bel, cores, AZURE_PRIORS, alive=alive)
+    grid = (t, idx, frac, nd)
+    return {
+        "moment_curves_agg_belief": (
+            K.moment_curves_agg_belief, R.moment_curves_agg_belief_ref,
+            (bel, cores, alive, *grid, AZURE_PRIORS)),
+        "moment_curves_belief": (
+            K.moment_curves_belief, R.moment_curves_belief_ref,
+            (bel, cores, *grid, AZURE_PRIORS)),
+        "moment_curves_agg_packed": (
+            K.moment_curves_agg_packed, R.moment_curves_agg_packed_ref,
+            (params, *grid)),
+        "moment_curves_packed": (
+            K.moment_curves_packed, R.moment_curves_packed_ref,
+            (params, *grid)),
+    }
 
 
 def event_ms(fn, reps=60, warm=10):
@@ -205,12 +245,17 @@ def graph_ms(fn, reps=50, replays=7):
     return statistics.median(times)
 
 
-def bound(d, n, nd, aggregate):
+def bound(d, n, nd, aggregate, belief):
     """(bound_ms, bound_by): bytes each input read once and each output
-    written once over HBM bandwidth, against operations over FP32 peak."""
+    written once over HBM bandwidth, against operations over FP32 peak.
+    The belief form reads seven float32 columns (and the bool ALIVE column
+    for the aggregate) and packs each row; the packed form reads 16
+    floats a row."""
     out_floats = 2 * n if aggregate else 2 * d * n
-    nbytes = 4 * (16 * d + 3 * n + out_floats)
-    ops = d * (n * OPS_PER_POINT + nd * OPS_PER_CHECKPOINT)
+    row_bytes = (4 * 7 + (1 if aggregate else 0)) if belief else 4 * 16
+    nbytes = d * row_bytes + 4 * (3 * n + out_floats)
+    ops = d * (n * OPS_PER_POINT + nd * OPS_PER_CHECKPOINT
+               + (OPS_PER_PACK if belief else 0))
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -223,72 +268,103 @@ def tolerance_used(got, want, tol):
 
 
 def check_kernels():
-    """Phase 3: kernels against plain versions; returns per-kernel records
-    at the simulator's shapes."""
+    """Phase 3: kernels against plain versions; returns the belief-form
+    kernels' records at the simulator's shapes."""
     import torch
+    from repro_torch.core import AZURE_PRIORS
     from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.kernels.moment_curves import ops
     from repro_torch.kernels.moment_curves import ref as R
 
-    pairs = {
-        "moment_curves_agg_packed": (K.moment_curves_agg_packed,
-                                     R.moment_curves_agg_packed_ref),
-        "moment_curves_packed": (K.moment_curves_packed,
-                                 R.moment_curves_packed_ref),
-    }
-    worst = {name: 0.0 for name in pairs}
+    worst = {}
     for d in (1, 8, 37, 300, 8192, 8193):
         for n in (12, 48):
             for nd in (8, 24, 32):
-                args = packed_case(d, n, nd, seed=d * 1000 + n * 10 + nd,
-                                   device=DEVICE)
-                for name, (kern, plain) in pairs.items():
-                    el, vl = kern(*args, nd)
-                    el2, vl2 = kern(*args, nd)
+                calls = kernel_calls(d, n, nd, d * 1000 + n * 10 + nd, DEVICE)
+                for name, (kern, plain, args) in calls.items():
+                    el, vl = kern(*args)
+                    el2, vl2 = kern(*args)
                     torch.cuda.synchronize()
                     if not (torch.equal(el, el2) and torch.equal(vl, vl2)):
                         raise AssertionError(
                             f"{name} not deterministic at D={d} N={n} "
                             f"ND={nd}")
-                    want_el, want_vl = plain(*args, nd)
+                    want_el, want_vl = plain(*args)
                     torch.testing.assert_close(el, want_el, **TOL_EL)
                     torch.testing.assert_close(vl, want_vl, **TOL_VL)
-                    worst[name] = max(worst[name],
+                    worst[name] = max(worst.get(name, 0.0),
                                       tolerance_used(el, want_el, TOL_EL),
                                       tolerance_used(vl, want_vl, TOL_VL))
     log("kernels match their plain versions over 36 shapes each; largest "
         "share of the tolerance used: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    for belief in (True, False):
+        res = K.agg_residency(belief, 48)
+        log(f"aggregate kernel, {'belief' if belief else 'packed'} form, at "
+            f"N = 48: {res['registers']} registers, {res['local_bytes']} "
+            f"local bytes a thread; {res['ctas_per_sm']} CTA(s) of "
+            f"{R.AGG_WARPS} warps an SM on {res['sms']} SMs "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    floor_ms = graph_ms(K.launch_empty)
+    log(f"launch floor: an empty kernel takes {floor_ms:.4f} ms on the "
+        f"device (CUDA graph), {event_ms(K.launch_empty):.4f} ms a call")
 
     records = {}
-    replaces = {
-        "moment_curves_agg_packed":
-            "src/repro/kernels/moment_curves/kernel.py:103",
-        "moment_curves_packed": "src/repro/kernels/moment_curves/kernel.py:95",
-    }
-    shapes = {"moment_curves_agg_packed": (8192, 48, 24, True),
-              "moment_curves_packed": (8, 48, 24, False)}
-    for name, (kern, plain) in pairs.items():
-        d, n, nd, agg = shapes[name]
-        args = packed_case(d, n, nd, seed=11, device=DEVICE)
-        el, vl = kern(*args, nd)
-        want_el, want_vl = plain(*args, nd)
-        max_abs = max(float((el - want_el).abs().max()),
-                      float((vl - want_vl).abs().max()))
-        b_ms, b_by = bound(d, n, nd, agg)
-        rec = dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/moment_curves/csrc/"
-                   "moment_curves.cu",
-            replaces=replaces[name], launches=0, max_abs_err=max_abs,
-            ms=event_ms(lambda: kern(*args, nd)),
-            plain_ms=event_ms(lambda: plain(*args, nd)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            device_ms=graph_ms(lambda: kern(*args, nd)),
-            shape=dict(D=d, N=n, ND=nd))
-        log(f"{name} at D={d} N={n} ND={nd}: {rec['ms']:.4f} ms a call "
-            f"({rec['device_ms']:.4f} ms on the device, CUDA graph), plain "
-            f"{rec['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
-            f"max abs err {max_abs:.3e}")
+    replaces = {"agg": "src/repro/kernels/moment_curves/kernel.py:103",
+                "rows": "src/repro/kernels/moment_curves/kernel.py:95"}
+    for agg, (d, n, nd) in ((True, (8192, 48, 24)), (False, (8, 48, 24))):
+        calls = kernel_calls(d, n, nd, 11, DEVICE)
+        times = {}
+        for name, (kern, plain, args) in calls.items():
+            if ("agg" in name) != agg:
+                continue
+            belief = "belief" in name
+            el, vl = kern(*args)
+            want_el, want_vl = plain(*args)
+            max_abs = max(float((el - want_el).abs().max()),
+                          float((vl - want_vl).abs().max()))
+            b_ms, b_by = bound(d, n, nd, agg, belief)
+            times[name] = rec = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/kernels/moment_curves/csrc/"
+                       "moment_curves.cu",
+                replaces=replaces["agg" if agg else "rows"], launches=0,
+                max_abs_err=max_abs,
+                ms=event_ms(lambda: kern(*args)),
+                plain_ms=event_ms(lambda: plain(*args)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                device_ms=graph_ms(lambda: kern(*args)),
+                shape=dict(D=d, N=n, ND=nd))
+            log(f"{name} at D={d} N={n} ND={nd}: {rec['ms']:.4f} ms a call "
+                f"({rec['device_ms']:.4f} ms on the device, CUDA graph; "
+                f"launch floor {floor_ms:.4f}), plain {rec['plain_ms']:.4f} "
+                f"ms, bound {b_ms:.6f} ms ({b_by}), max abs err "
+                f"{max_abs:.3e}")
+        bel, cores, alive, grid, _ = belief_case(d, n, nd, 11, DEVICE)
+        if agg:
+            new = lambda: ops.aggregate_moment_curves_kernel(
+                bel, cores, alive, grid, AZURE_PRIORS, d_points=nd)
+            old = lambda: K.moment_curves_agg_packed(
+                R.pack_rows(bel, cores, AZURE_PRIORS, alive=alive),
+                *ops.curve_grid(grid, nd))
+            name = "moment_curves_agg_belief"
+        else:
+            new = lambda: ops.moment_curves_kernel(bel, cores, grid,
+                                                   AZURE_PRIORS, d_points=nd)
+            old = lambda: K.moment_curves_packed(
+                R.pack_rows(bel, cores, AZURE_PRIORS),
+                *ops.curve_grid(grid, nd))
+            name = "moment_curves_belief"
+        rec = times[name]
+        rec["entry_ms"] = event_ms(new)
+        rec["packed_path_ms"] = event_ms(old)
+        rec["launch_floor_ms"] = floor_ms
+        packed = times[name.replace("belief", "packed")]
+        rec["packed_form"] = {k: packed[k] for k in ("ms", "device_ms",
+                                                     "bound_ms")}
+        log(f"{'aggregate_moment_curves_kernel' if agg else 'moment_curves_kernel'}"
+            f" at D={d}: {rec['entry_ms']:.4f} ms a call; the packed path "
+            f"(pack + grids + packed launch) {rec['packed_path_ms']:.4f} ms")
         records[name] = rec
     return records
 
@@ -333,17 +409,17 @@ def main_path(records):
             if not bool(torch.isfinite(field).all()):
                 raise AssertionError(f"{name}: non-finite metrics")
         n_refresh = cfg.n_steps // cfg.agg_refresh_steps
-        want = ({"moment_curves_agg_packed": n_refresh,
-                 "moment_curves_packed": cfg.n_steps} if kind == SECOND
-                else {"moment_curves_agg_packed": 0,
-                      "moment_curves_packed": 0})
+        want = dict.fromkeys(launches, 0)
+        if kind == SECOND:
+            want.update(moment_curves_agg_belief=n_refresh,
+                        moment_curves_belief=cfg.n_steps)
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, want {want}")
         out[name] = dict(utilization=util, failure_rate=fail, wall_s=wall,
                          steps_per_s=cfg.n_steps / wall)
         if kind == SECOND:
-            for k, v in launches.items():
-                records[k]["launches"] = v
+            for k in records:
+                records[k]["launches"] = launches[k]
     return out
 
 
@@ -417,7 +493,8 @@ def lockstep():
     log(f"lockstep at PAPER_CPU ({cfg.n_steps} steps, {cfg.max_slots} "
         f"slots): decisions equal, {ties} float32 ties "
         f"(margin < {TIE_MARGIN}); refreshed aggregate E[L], card vs CPU, "
-        f"largest relative difference {agg_rel:.3e}; utilization "
+        f"largest relative difference {agg_rel:.3e} (rows packed on the "
+        f"host: {AGG_REL_HOST_PACKED:.3e}); utilization "
         f"{float(metrics[DEVICE].utilization):.4f} on both")
 
 

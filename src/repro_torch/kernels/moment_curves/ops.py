@@ -1,10 +1,12 @@
 """Entry points of the moment-curve kernels.
 
-Packs the GammaBelief into the kernels' [D, 16] parameter rows via
-``core.moments.pack_belief`` (the Gamma-function continuation factors, which
-need lgamma, are computed here once per row), derives the D-term's two-point
-interpolation from the horizon grid, and unpacks MomentCurves. The CUDA
-kernels mask the ragged edge of D themselves, so nothing is padded.
+The kernels read the GammaBelief columns as the slot table holds them and
+compute the Gamma-function continuation factors themselves (the belief
+form in ``kernel.py``). The D-term's two-point interpolation depends only on
+the horizon grid: it is derived once per grid tensor (``curve_grid``) and
+kept until the tensor is written to or freed, so an admission core, which
+passes the same grid every step, derives it once. The CUDA kernels mask the
+ragged edge of D themselves, so nothing is padded.
 
 * ``moment_curves_kernel`` — per-deployment curves [D, N]; drop-in for
   ``core.moments.moment_curves`` (midpoint D-term on ``d_points`` uniform
@@ -12,44 +14,69 @@ kernels mask the ragged edge of D themselves, so nothing is padded.
 * ``aggregate_moment_curves_kernel`` — cluster-wide masked sums [N]; drop-in
   for ``core.moments.aggregate_moment_curves``.
 
-On CUDA tensors both launch the kernels; on CPU tensors the launchers run
-the plain PyTorch versions in ``ref.py``.
+On CUDA tensors they launch the kernels; on CPU tensors the launchers run
+the plain PyTorch versions in ``ref.py`` (``pack_belief``, then the packed
+forms).
 """
 from __future__ import annotations
+
+import weakref
+from typing import NamedTuple
 
 import torch
 
 from ...core.belief import GammaBelief
-from ...core.moments import MomentCurves, interp_points, pack_belief
+from ...core.moments import MomentCurves, interp_points
 from ...core.processes import F32, PopulationPriors
-from .kernel import moment_curves_agg_packed, moment_curves_packed
+from .kernel import moment_curves_agg_belief, moment_curves_belief
 
 
-def _pack(bel: GammaBelief, cores: torch.Tensor, priors: PopulationPriors,
-          alive: torch.Tensor | None = None) -> torch.Tensor:
-    """[D, 16] packed parameter rows, ALIVE in column 14 (ones if absent)."""
-    p = pack_belief(bel, cores, priors)
-    a = p.a
-    delta = torch.full_like(a, priors.delta)
-    mask = torch.ones_like(a) if alive is None else alive.to(F32)
-    cols = [p.a, p.b, p.cores, p.eu, p.eu2, p.el, p.es1, p.ess2, p.rh1, p.z1,
-            p.rk, p.z2, p.e_mu_nu, delta, mask, torch.zeros_like(a)]
-    return torch.stack(cols, dim=-1).to(F32).contiguous()
+class CurveGrid(NamedTuple):
+    """The horizon grid and the D-term's interpolation, as the kernels take
+    them."""
+
+    t: torch.Tensor       # [N] float32 horizon times
+    idx: torch.Tensor     # [N] int32 left checkpoint
+    frac: torch.Tensor    # [N] float32 weight of the right one
+    nd: int               # D-term checkpoints
 
 
-def _grids(t_grid: torch.Tensor, d_points: int):
-    """(t [N] f32, idx [N] int32, frac [N] f32) for the launchers."""
+def curve_grid(t_grid: torch.Tensor, d_points: int) -> CurveGrid:
     t = t_grid.to(F32).contiguous()
     _, idx, frac = interp_points(t, d_points)
-    return t, idx, frac.contiguous()
+    return CurveGrid(t, idx, frac.contiguous(), d_points)
+
+
+# (id of a horizon grid, d_points) -> (weak reference to it, its version,
+# its CurveGrid)
+_GRIDS: dict = {}
+_GRIDS_KEPT = 64
+
+
+def _grid_of(t_grid: torch.Tensor, d_points: int) -> CurveGrid:
+    """``curve_grid(t_grid, d_points)``, derived again only when ``t_grid``
+    is another tensor or was written to in place (every time for an
+    inference tensor, which has no version counter)."""
+    if t_grid.is_inference():
+        return curve_grid(t_grid, d_points)
+    key = (id(t_grid), d_points)
+    hit = _GRIDS.get(key)
+    if (hit is not None and hit[0]() is t_grid
+            and hit[1] == t_grid._version):
+        return hit[2]
+    if len(_GRIDS) >= _GRIDS_KEPT:
+        _GRIDS.clear()
+    grid = curve_grid(t_grid, d_points)
+    _GRIDS[key] = (weakref.ref(t_grid), t_grid._version, grid)
+    return grid
 
 
 def moment_curves_kernel(bel: GammaBelief, cores: torch.Tensor,
                          t_grid: torch.Tensor, priors: PopulationPriors, *,
                          d_points: int = 32) -> MomentCurves:
     """Kernel-backed moment curves. bel fields/cores: [D]; t_grid: [N]."""
-    el, vl = moment_curves_packed(_pack(bel, cores, priors),
-                                  *_grids(t_grid, d_points), d_points)
+    el, vl = moment_curves_belief(bel, cores, *_grid_of(t_grid, d_points),
+                                  priors)
     return MomentCurves(EL=el, VL=vl)
 
 
@@ -58,6 +85,6 @@ def aggregate_moment_curves_kernel(
         t_grid: torch.Tensor, priors: PopulationPriors, *,
         d_points: int = 32) -> MomentCurves:
     """Aggregate (sum over alive slots) curves [N] via the aggregate kernel."""
-    el, vl = moment_curves_agg_packed(_pack(bel, cores, priors, alive=alive),
-                                      *_grids(t_grid, d_points), d_points)
+    el, vl = moment_curves_agg_belief(bel, cores, alive,
+                                      *_grid_of(t_grid, d_points), priors)
     return MomentCurves(EL=el, VL=vl)

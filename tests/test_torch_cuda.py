@@ -7,7 +7,11 @@ Each kernel is held against its plain PyTorch version on the same card
 inputs (moment curves: the JAX package's rtol 2e-4 on EL and 2e-3 on VL;
 flash attention 2e-5 in float32 and one bf16 ulp in bf16, with p kept in
 float32; GQA decode, float32 out, 3e-5 for either cache type), and repeat
-launches must be bitwise equal. The decode kernel is also run at lengths
+launches must be bitwise equal. Both moment-curve kernels run in both
+forms (packed rows, and the belief columns the simulator launches); the
+aggregate must give equal bits in 50 replays of a CUDA graph, and each
+moment-curve entry point must be one CUDA kernel a call. The decode kernel
+is also run at lengths
 around its key tile and split share, must refuse a misaligned view, and
 must be one CUDA kernel a call. The bf16 flash kernel is also run at sequence
 lengths around its tiles, on views of a fused QKV tensor, and must refuse a
@@ -41,36 +45,95 @@ def card():
     return torch.device("cuda")
 
 
-def _packed(d, n, nd, device):
+def _case(d, n, nd, device):
+    """Numpy-made beliefs of ``d`` slots and the kernels' grid, on
+    ``device``."""
     rng = np.random.default_rng(d + n + nd)
     e = lambda base: torch.from_numpy(
         (base * np.exp(rng.standard_normal(d))).astype(np.float32))
     bel = GammaBelief(e(0.31), e(0.58), e(0.49), e(0.45), e(0.26), e(0.055))
     cores = torch.from_numpy((1.0 + rng.poisson(5.0, d)).astype(np.float32))
     alive = torch.from_numpy(rng.random(d) < 0.6)
-    params = ops._pack(bel, cores, AZURE_PRIORS, alive=alive).to(device)
-    return (params, *ops._grids(geometric_grid(6.0, 78_840.0, n,
-                                               device=device), nd))
+    bel = GammaBelief(*(x.to(device) for x in bel))
+    return (bel, cores.to(device), alive.to(device),
+            geometric_grid(6.0, 78_840.0, n, device=device))
+
+
+def _calls(which, d, n, nd, device):
+    """(kernel launcher, plain version, their arguments) of one form."""
+    bel, cores, alive, grid = _case(d, n, nd, device)
+    t, idx, frac, _ = ops.curve_grid(grid, nd)
+    if which == "rows_belief":
+        return (K.moment_curves_belief, R.moment_curves_belief_ref,
+                (bel, cores, t, idx, frac, nd, AZURE_PRIORS))
+    if which == "agg_belief":
+        return (K.moment_curves_agg_belief, R.moment_curves_agg_belief_ref,
+                (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS))
+    params = R.pack_rows(bel, cores, AZURE_PRIORS, alive=alive)
+    if which == "rows":
+        return (K.moment_curves_packed, R.moment_curves_packed_ref,
+                (params, t, idx, frac, nd))
+    return (K.moment_curves_agg_packed, R.moment_curves_agg_packed_ref,
+            (params, t, idx, frac, nd))
 
 
 @pytest.mark.parametrize("d,n,nd", [(1, 12, 8), (8, 48, 24), (300, 48, 32),
                                     (8193, 48, 24)])
-@pytest.mark.parametrize("which", ["rows", "agg"])
+@pytest.mark.parametrize("which", ["rows", "agg", "rows_belief",
+                                   "agg_belief"])
 def test_kernel_matches_plain_version(card, which, d, n, nd):
-    kern, plain = ((K.moment_curves_packed, R.moment_curves_packed_ref)
-                   if which == "rows" else
-                   (K.moment_curves_agg_packed,
-                    R.moment_curves_agg_packed_ref))
-    args = _packed(d, n, nd, card)
+    kern, plain, args = _calls(which, d, n, nd, card)
     before = dict(K.LAUNCHES)
-    el, vl = kern(*args, nd)
-    el2, vl2 = kern(*args, nd)
+    el, vl = kern(*args)
+    el2, vl2 = kern(*args)
     torch.cuda.synchronize()
     assert sum(K.LAUNCHES.values()) == sum(before.values()) + 2
     assert torch.equal(el, el2) and torch.equal(vl, vl2)
-    want_el, want_vl = plain(*args, nd)
+    want_el, want_vl = plain(*args)
     torch.testing.assert_close(el, want_el, rtol=2e-4, atol=1e-5)
     torch.testing.assert_close(vl, want_vl, rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [1, 8192, 8193])
+@pytest.mark.parametrize("which", ["agg", "agg_belief"])
+def test_aggregate_in_cuda_graph_equals_eager(card, which, d):
+    """The aggregate's cross-CTA counter is back at 0 after every launch:
+    50 replays of a captured call, each followed by an eager call on
+    another stream's counter, all give the eager call's bits."""
+    kern, _, args = _calls(which, d, 48, 24, card)
+    want = kern(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = kern(*args)
+    for _ in range(50):
+        graph.replay()
+        eager = kern(*args)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, eager, want):
+            assert torch.equal(x, z) and torch.equal(y, z)
+
+
+@pytest.mark.parametrize("which", ["rows", "agg"])
+def test_entry_point_is_one_kernel(card, which):
+    """An ``ops`` entry point launches the belief-form kernel and nothing
+    else: no pack, no interpolation, no second pass over CTA partials."""
+    bel, cores, alive, grid = _case(8192 if which == "agg" else 8, 48, 24,
+                                    card)
+    if which == "rows":
+        call = lambda: ops.moment_curves_kernel(bel, cores, grid, AZURE_PRIORS,
+                                                d_points=24)
+    else:
+        call = lambda: ops.aggregate_moment_curves_kernel(
+            bel, cores, alive, grid, AZURE_PRIORS, d_points=24)
+    kernels = _kernels_of_one_call(call)
+    assert len(kernels) == 1, kernels
+    assert f"{which}_kernel" in kernels[0] and "BeliefRow" in kernels[0], \
+        kernels
 
 
 def test_card_run_is_deterministic_and_conserves(card):
@@ -82,8 +145,10 @@ def test_card_run_is_deterministic_and_conserves(card):
     run = make_run(cfg, grid, SECOND, record_decisions=True, device=card)
     K.reset_launches()
     (m1, a1), (m2, a2) = run(1, policy), run(1, policy)
-    assert K.LAUNCHES == {"moment_curves_packed": 2 * cfg.n_steps,
-                          "moment_curves_agg_packed": 2 * cfg.n_steps // 3}
+    assert K.LAUNCHES == {"moment_curves_belief": 2 * cfg.n_steps,
+                          "moment_curves_agg_belief": 2 * cfg.n_steps // 3,
+                          "moment_curves_packed": 0,
+                          "moment_curves_agg_packed": 0}
     assert torch.equal(a1, a2)
     for x, y in zip(m1, m2):
         assert torch.equal(x, y)
@@ -238,37 +303,40 @@ def test_decode_refuses_misaligned_views(card):
         DR.decode_gqa_ref(q, view, view, lengths), rtol=3e-5, atol=3e-5)
 
 
-def test_decode_call_is_one_kernel(card):
-    """A call launches one CUDA kernel and nothing else (no combine kernel,
-    no scratch). The profiler's schedule runs the call once as a warm-up
-    step, whose trace it discards, then once traced. The traced step's own
-    marker (``ProfilerStep*``) is an event on the device too; a trace
-    without it recorded nothing of the device, and is taken again (at most
-    three traces)."""
+def _kernels_of_one_call(call):
+    """The CUDA kernels one ``call()`` launches. The profiler's schedule
+    runs the call once as a warm-up step, whose trace it discards, then once
+    traced. The traced step's own marker (``ProfilerStep*``) is an event on
+    the device too; a trace without it recorded nothing of the device, and
+    is taken again (at most three traces)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    gen = torch.Generator(device=card).manual_seed(5)
-    q = _randn(gen, (4, 32, 64), torch.bfloat16, card)
-    k = _randn(gen, (4, 1024, 8, 64), torch.bfloat16, card)
-    lengths = torch.tensor([1024, 7, 0, 512], dtype=torch.int32, device=card)
-    DG.decode_gqa_bshd(q, k, k, lengths)
+    call()
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(2):
-                DG.decode_gqa_bshd(q, k, k, lengths)
+                call()
                 torch.cuda.synchronize()
                 prof.step()
         device = [e.name for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         if any(x.startswith("ProfilerStep") for x in device):
-            break
-    else:
-        pytest.fail("torch.profiler recorded nothing of the device in 3 "
-                    "traces")
-    kernels = [x for x in device if not x.startswith("ProfilerStep")]
+            return [x for x in device if not x.startswith("ProfilerStep")]
+    pytest.fail("torch.profiler recorded nothing of the device in 3 traces")
+
+
+def test_decode_call_is_one_kernel(card):
+    """A call launches one CUDA kernel and nothing else (no combine kernel,
+    no scratch)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = _randn(gen, (4, 32, 64), torch.bfloat16, card)
+    k = _randn(gen, (4, 1024, 8, 64), torch.bfloat16, card)
+    lengths = torch.tensor([1024, 7, 0, 512], dtype=torch.int32, device=card)
+    kernels = _kernels_of_one_call(
+        lambda: DG.decode_gqa_bshd(q, k, k, lengths))
     assert len(kernels) == 1 and "decode_cluster_kernel" in kernels[0], \
         kernels
 
