@@ -18,12 +18,30 @@ time:
                the least time the card could take, and a call of each
                ``ops`` entry point against the packed path it replaced
                (pack + grids + packed launch).
+               Then the batched aggregate (R runs' slot tables in one
+               launch) for R x D x N = {1, 3, 24, 240} x {96, 8,192, 8,193,
+               20,000} x {12, 48}: against its plain version, bit for bit
+               run by run against one-run launches, one CUDA kernel a call
+               (counted from a CUDA graph of it), its times at R = 24 and
+               240 (D = 8,192, N = 48) beside the bound for R runs and
+               beside R one-run launches in one CUDA graph.
   4. main    — ``make_run`` at the paper's full scale (PAPER_FULL, the
                ``full`` preset's grid and refresh interval) for SECOND
                (rho 0.112) and ZEROTH (threshold 8,864), the paper's tuned
                values; the launch counters show the SECOND run went through
                both belief-form kernels (365 aggregate and 4,380 candidate
                launches) and no packed one.
+  4b. batch  — the same SECOND run as one batch of 24 seeds, 2018 among
+               them: 4,380 candidate launches (each the batch's 24 x 8
+               rows) and 365 aggregate launches for the whole batch (each
+               over all 24 runs); run 2018 equal to phase 4's bit for bit;
+               runs x steps/s beside phase 4's steps/s.
+  4c. Table 2 — ``repro_torch.benchmarks.common.tune_and_eval`` at the
+               ``quick`` preset for ZEROTH, FIRST and SECOND: theta,
+               utilization with its BCa interval, SLA rate, stages,
+               simulations and seconds, beside the JAX package's
+               ``tuning/calibrate/*`` rows of BENCH_quick.json; every chosen
+               theta feasible under the port's own measurement.
   5. lockstep — a card core and a CPU core on one arrival stream and the
                same per-step events: equal decisions (up to float32 ties)
                and equal final metrics; the refreshed aggregate's largest
@@ -42,7 +60,7 @@ time:
                call) at lengths around its key tile and split share for
                G = 1-16, Dh = 64/128/256, every q/cache dtype pairing,
                refusing a misaligned view, and one CUDA kernel a call
-               under torch.profiler; times at llama3.2-1b's
+               (counted from a CUDA graph of it); times at llama3.2-1b's
                shapes (and flash at Dh = 128) beside the bound and SDPA,
                each also in a CUDA graph, and decode also cold (a graph
                over 6 caches in turn, 100 MB of valid K/V).
@@ -149,22 +167,25 @@ def card_line():
     return out[0]
 
 
-def belief_case(d, n, nd, seed, device):
-    """``d`` numpy-made beliefs, cores and alive flags, and the kernels'
-    grid (a ``CurveGrid``), on ``device``."""
+def belief_case(d, n, nd, seed, device, runs=None):
+    """``d`` numpy-made beliefs, cores and alive flags ([D] columns, or
+    [R, D] for ``runs`` runs), and the kernels' grid (a ``CurveGrid``), on
+    ``device``."""
     import numpy as np
     import torch
     from repro_torch.core import geometric_grid
     from repro_torch.core.belief import GammaBelief
     from repro_torch.kernels.moment_curves import ops
 
+    shape = d if runs is None else (runs, d)
     rng = np.random.default_rng(seed)
     e = lambda base: torch.from_numpy(
-        (base * np.exp(rng.standard_normal(d))).astype(np.float32))
+        (base * np.exp(rng.standard_normal(shape))).astype(np.float32))
     bel = GammaBelief(mu_a=e(0.31), mu_b=e(0.58), lam_a=e(0.49),
                       lam_b=e(0.45), sig_a=e(0.26), sig_b=e(0.055))
-    cores = torch.from_numpy((1.0 + rng.poisson(5.0, d)).astype(np.float32))
-    alive = torch.from_numpy(rng.random(d) < 0.6)
+    cores = torch.from_numpy(
+        (1.0 + rng.poisson(5.0, shape)).astype(np.float32))
+    alive = torch.from_numpy(rng.random(shape) < 0.6)
     grid = geometric_grid(6.0, 78_840.0, n, device=device)
     return (GammaBelief(*(x.to(device) for x in bel)), cores.to(device),
             alive.to(device), grid, ops.curve_grid(grid, nd))
@@ -369,8 +390,110 @@ def check_kernels():
     return records
 
 
+def bound_runs(runs, d, n, nd):
+    """(bound_ms, bound_by) of the batched aggregate over ``runs`` tables
+    of ``d`` rows: seven float32 columns and ALIVE a row read once, the grid
+    read once, [runs, 2N] written once; each run's operations."""
+    nbytes = runs * d * (4 * 7 + 1) + 4 * (3 * n + runs * 2 * n)
+    ops = runs * d * (n * OPS_PER_POINT + nd * OPS_PER_CHECKPOINT
+                      + OPS_PER_PACK)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_agg_runs(records, floor_ms):
+    """Phase 3, the aggregate over R runs' tables (columns [R, D]) in one
+    launch: against its plain version, bit for bit run by run against
+    one-run launches, one CUDA kernel a call, and its times at R = 24 and
+    240 beside those of R one-run launches in one CUDA graph."""
+    import torch
+    from repro_torch.core import AZURE_PRIORS
+    from repro_torch.core.belief import GammaBelief
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.kernels.moment_curves import ref as R
+
+    def one_run_args(args, r):
+        bel, cores, alive, *rest = args
+        return (GammaBelief(*(x[r] for x in bel)), cores[r], alive[r], *rest)
+
+    nd, worst, n_cases = 24, 0.0, 0
+    for runs in (1, 3, 24, 240):
+        for d in (96, 8192, 8193, 20000):
+            for n in (12, 48):
+                bel, cores, alive, _, (t, idx, frac, _) = belief_case(
+                    d, n, nd, runs * 100_000 + d * 10 + n, DEVICE, runs)
+                args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+                el, vl = K.moment_curves_agg_belief(*args)
+                el2, vl2 = K.moment_curves_agg_belief(*args)
+                torch.cuda.synchronize()
+                where = f"R={runs} D={d} N={n}"
+                if not (torch.equal(el, el2) and torch.equal(vl, vl2)):
+                    raise AssertionError(f"batched aggregate not "
+                                         f"deterministic at {where}")
+                want_el, want_vl = R.moment_curves_agg_belief_ref(*args)
+                torch.testing.assert_close(el, want_el, **TOL_EL)
+                torch.testing.assert_close(vl, want_vl, **TOL_VL)
+                worst = max(worst, tolerance_used(el, want_el, TOL_EL),
+                            tolerance_used(vl, want_vl, TOL_VL))
+                del want_el, want_vl
+                for r in range(runs):
+                    one = K.moment_curves_agg_belief(*one_run_args(args, r))
+                    if not (torch.equal(one[0], el[r])
+                            and torch.equal(one[1], vl[r])):
+                        raise AssertionError(f"run {r} of the batch at "
+                                             f"{where} differs from its "
+                                             "one-run launch")
+                n_cases += 1
+    log(f"batched aggregate matches its plain version over {n_cases} "
+        f"cases (R 1-240, D 96-20,000, N 12/48; largest share of the "
+        f"tolerance used {worst:.3e}) and equals one-run launches bit for "
+        "bit, run by run")
+
+    runs, d, n = 24, 8192, 48
+    bel, cores, alive, _, (t, idx, frac, _) = belief_case(d, n, nd, 12,
+                                                          DEVICE, runs)
+    args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+    names = kernels_of_one_call(lambda: K.moment_curves_agg_belief(*args))
+    if len(names) != 1 or not ("agg_kernel" in names[0]
+                               and "BeliefRow" in names[0]):
+        raise AssertionError(f"a batched aggregate call ran {names}")
+    log(f"batched aggregate: one CUDA kernel a call in a CUDA graph of it "
+        f"({names[0][-60:]})")
+    rec = records["moment_curves_agg_belief"]
+    rec["runs"] = {}
+    for runs in (24, 240):
+        bel, cores, alive, _, (t, idx, frac, _) = belief_case(d, n, nd, 13,
+                                                              DEVICE, runs)
+        args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+        singles = [one_run_args(args, r) for r in range(runs)]
+        kern = lambda: K.moment_curves_agg_belief(*args)
+        plain = lambda: R.moment_curves_agg_belief_ref(*args)
+        one_runs = lambda: [K.moment_curves_agg_belief(*a) for a in singles]
+        el, vl = kern()
+        want_el, want_vl = plain()
+        max_abs = max(float((el - want_el).abs().max()),
+                      float((vl - want_vl).abs().max()))
+        b_ms, b_by = bound_runs(runs, d, n, nd)
+        timed = dict(ms=event_ms(kern), device_ms=graph_ms(kern, reps=20),
+                     one_run_launches_device_ms=graph_ms(
+                         one_runs, reps=max(2, 480 // runs)),
+                     plain_ms=event_ms(plain, reps=10, warm=2),
+                     bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs,
+                     shape=dict(R=runs, D=d, N=n, ND=nd))
+        log(f"moment_curves_agg_belief at R={runs} D={d} N={n} ND={nd}: "
+            f"{timed['ms']:.4f} ms a call ({timed['device_ms']:.4f} ms on "
+            f"the device, CUDA graph; {runs} one-run launches in a CUDA "
+            f"graph {timed['one_run_launches_device_ms']:.4f}; launch floor "
+            f"{floor_ms:.4f}), plain {timed['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), max abs err {max_abs:.3e}")
+        rec["runs"][runs] = timed
+        del want_el, want_vl
+
+
 def main_path(records):
-    """Phase 4: make_run at PAPER_FULL for SECOND and ZEROTH."""
+    """Phase 4: make_run at PAPER_FULL for SECOND and ZEROTH; returns
+    each run's numbers and metrics."""
     import math
 
     import torch
@@ -416,11 +539,101 @@ def main_path(records):
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, want {want}")
         out[name] = dict(utilization=util, failure_rate=fail, wall_s=wall,
-                         steps_per_s=cfg.n_steps / wall)
+                         steps_per_s=cfg.n_steps / wall, metrics=m)
         if kind == SECOND:
             for k in records:
                 records[k]["launches"] = launches[k]
     return out
+
+
+
+def batch_path(records, single):
+    """Phase 4b: phase 4's SECOND run as one batch of 24 seeds."""
+    import math
+
+    import torch
+    from repro_torch.configs import PAPER_FULL, PAPER_TABLE2
+    from repro_torch.core import SECOND, geometric_grid, make_policy
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.sim import make_run, split_seeds
+
+    cfg = PAPER_FULL._replace(agg_refresh_steps=12)
+    grid = geometric_grid(cfg.dt, 3 * cfg.horizon_hours, 48, device=DEVICE)
+    seeds = split_seeds(2018, 23)
+    seeds.insert(5, 2018)
+    run = make_run(cfg, grid, SECOND, device=DEVICE)
+    policy = make_policy(SECOND, rho=PAPER_TABLE2["second_rho"],
+                         capacity=cfg.capacity)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    m = run(seeds, policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    # one aggregate launch a refresh for all the runs (not one a run)
+    want.update(moment_curves_belief=cfg.n_steps,
+                moment_curves_agg_belief=cfg.n_steps
+                // cfg.agg_refresh_steps)
+    if launches != want:
+        raise AssertionError(f"batch: launches {launches}, want {want}")
+    for field in m:
+        if not bool(torch.isfinite(field).all()):
+            raise AssertionError("batch: non-finite metrics")
+    util = m.utilization.cpu()
+    if not bool(((util > 0.0) & (util <= 1.0)).all()):
+        raise AssertionError(f"batch: utilizations {util}")
+    alone = single["second"]["metrics"]
+    for name in alone._fields:
+        if not torch.equal(getattr(m, name)[5], getattr(alone, name)):
+            raise AssertionError(f"batch run 2018: {name} differs from "
+                                 "phase 4's run")
+    rate = len(seeds) * cfg.n_steps / wall
+    for name in ("moment_curves_belief", "moment_curves_agg_belief"):
+        records[name]["launches_batch"] = launches[name]
+    log(f"PAPER_FULL second, a batch of {len(seeds)} runs: wall "
+        f"{wall:.2f} s, {cfg.n_steps / wall:.1f} batched steps/s, "
+        f"{rate:.1f} runs x steps/s (phase 4, one run: "
+        f"{single['second']['steps_per_s']:.1f} steps/s; "
+        f"{rate / single['second']['steps_per_s']:.2f}x); utilization "
+        f"mean {float(util.mean()):.4f} (min {float(util.min()):.4f}, max "
+        f"{float(util.max()):.4f}), failure rate mean "
+        f"{float(m.failure_rate.mean()):.3e}; launches {launches}; run "
+        "2018 equals phase 4's bit for bit")
+    if not math.isfinite(rate):
+        raise AssertionError("batch: no rate")
+
+
+def table2_quick():
+    """Phase 4c: Table 2 at the quick preset on the card."""
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks.table2_policies import NAMES, rows
+
+    scale = common.SCALES["quick"]
+    cfg = common.sim_config(scale)
+    bench = json.loads((ROOT / "BENCH_quick.json").read_text())["rows"]
+    reference = {r["name"].rsplit("/", 1)[1]: r["derived"] for r in bench
+                 if r["name"].startswith("tuning/calibrate/")}
+    res = {}
+    for kind, name in NAMES.items():
+        r = res[name] = common.tune_and_eval(scale, kind, cfg, seed=0,
+                                             device=DEVICE)
+        log(f"table2/{name} at quick ({cfg.n_steps} steps, "
+            f"{cfg.max_slots} slots, refresh every {cfg.agg_refresh_steps}, "
+            f"{scale.n_runs} runs): theta {r['param']:.6g}, utilization "
+            f"{r['utilization']:.4f} (BCa {r['ci_lo']:.4f}:{r['ci_hi']:.4f}), "
+            f"SLA {r['sla_fail']:.3e} (ci {r['sla_lo']:.2e}:"
+            f"{r['sla_hi']:.2e}) <= tau {r['tau']:.0e}, stages "
+            f"{[len(st) for st in r['stages']]}, {r['n_sims']} simulations, "
+            f"{r['seconds']:.1f} s ({r['run_steps'] / r['seconds']:.0f} "
+            f"runs x steps/s); the JAX package (BENCH_quick.json): "
+            f"{reference.get(name, 'none')}")
+        if not (r["feasible"] and r["sla_fail"] <= r["tau"]):
+            raise AssertionError(f"table2/{name}: theta {r['param']} is not "
+                                 f"feasible (SLA {r['sla_fail']})")
+    for row in rows(res):
+        log("  " + row)
 
 
 def lockstep():
@@ -806,42 +1019,23 @@ def decode_misaligned_and_one_kernel(gen):
     k = randn((b, slots, kvh, dh), gen, torch.bfloat16)
     lens = torch.tensor([2048, 1, 0, slots], dtype=torch.int32,
                         device=DEVICE)
-    names, traces = kernels_of_one_call(
-        lambda: DG.decode_gqa_bshd(q, k, k, lens))
+    names = kernels_of_one_call(lambda: DG.decode_gqa_bshd(q, k, k, lens))
     if len(names) != 1 or "decode_cluster_kernel" not in names[0]:
         raise AssertionError(f"a decode call ran {len(names)} CUDA kernels: "
                              f"{names}")
     log("decode_gqa: a view one element off is refused; one call is one "
-        f"CUDA kernel ({names[0][:60]}; profiler traces taken: {traces})")
+        f"CUDA kernel in a CUDA graph of it ({names[0][:60]})")
 
 
-def kernels_of_one_call(fn, traces=3):
-    """(names of the CUDA kernels that one call of ``fn`` runs, traces
-    taken), from torch.profiler's CUDA events: the profiler's schedule runs
-    ``fn`` once as a warm-up step, whose trace it discards, then once
-    traced. The traced step's own marker (``ProfilerStep*``) is an event on
-    the device too; a trace without it recorded nothing of the device and
-    says nothing of the call, so it is taken again, at most ``traces``
-    times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+def kernels_of_one_call(fn):
+    """The CUDA kernels that one call of ``fn`` runs, counted from a CUDA
+    graph of the call (``repro_torch.kernels._graph``): each kernel node by
+    its function's name, any other node (a memset, a copy) as ``<type
+    node>``."""
+    from repro_torch.kernels._graph import kernels_of_one_call as graph_count
 
-    for n in range(1, traces + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        device = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(x.startswith("ProfilerStep") for x in device):
-            return [x for x in device if not x.startswith("ProfilerStep")], n
-    raise AssertionError(f"torch.profiler recorded nothing of the device in "
-                         f"{traces} traces")
+    names, others = graph_count(fn)
+    return names + [f"<{kind} node>" for kind in others]
 
 
 def time_attention_kernels(records):
@@ -1291,9 +1485,17 @@ def main():
 
     with phase("3. kernels against their plain versions"):
         records = check_kernels()
+        check_agg_runs(records, records["moment_curves_agg_belief"][
+            "launch_floor_ms"])
 
     with phase("4. main path at PAPER_FULL"):
-        main_path(records)
+        single = main_path(records)
+
+    with phase("4b. a batch of 24 runs at PAPER_FULL"):
+        batch_path(records, single)
+
+    with phase("4c. Table 2 at the quick preset"):
+        table2_quick()
 
     with phase("5. card against CPU, in lockstep"):
         lockstep()

@@ -16,7 +16,8 @@ from .moments import (MomentCurves, aggregate_moment_curves,
                       moment_curves_fused)
 from .policies import (FIRST, SECOND, ZEROTH, DecisionDiag, PolicyParams,
                        admit_sequential, admit_sequential_verbose, decide,
-                       decide_scored, geometric_grid, is_safe, make_policy)
+                       decide_scored, geometric_grid, is_safe, make_policy,
+                       tune_threshold)
 
 __all__ = [
     "AZURE_PRIORS", "DeploymentParams", "PopulationPriors", "StepEvents",
@@ -26,5 +27,5 @@ __all__ = [
     "moment_curves", "moment_curves_fused", "ZEROTH", "FIRST", "SECOND",
     "DecisionDiag", "PolicyParams", "admit_sequential",
     "admit_sequential_verbose", "decide", "decide_scored", "geometric_grid",
-    "is_safe", "make_policy",
+    "is_safe", "make_policy", "tune_threshold",
 ]

@@ -90,7 +90,7 @@ class StepEvents(NamedTuple):
 
 
 def sample_step_events(
-    gen: torch.Generator,
+    gen,
     params: DeploymentParams,
     cores: torch.Tensor,
     priors: PopulationPriors,
@@ -106,15 +106,31 @@ def sample_step_events(
 
     ``alive`` (optional bool mask) zeroes the event *rates* of dead slots
     before sampling; the simulator discards dead slots' events anyway.
+
+    ``gen`` is a ``torch.Generator``, or a sequence of R of them for R runs'
+    ``[R, D]`` leaves: run r's events are drawn by ``gen[r]`` from its own
+    row, in the order and with the bits of a call on that row alone (four
+    draws a run), so a run's draws do not depend on the batch around it.
     """
+    if isinstance(gen, torch.Generator):
+        rows = lambda fn, *xs: fn(*xs, gen)
+    else:
+        rows = lambda fn, *xs: torch.stack(
+            [fn(*(x[r] for x in xs), g) for r, g in enumerate(gen)])
     alive_f = 1.0 if alive is None else alive.to(F32)
     p_die = -torch.expm1(-params.mu * dt)
-    core_deaths = torch.binomial(cores.to(F32) * alive_f, p_die,
-                                 generator=gen).to(cores.dtype)
+    core_deaths = rows(lambda n, p, g: torch.binomial(n, p, generator=g),
+                       cores.to(F32) * alive_f, p_die).to(cores.dtype)
     p_spont = -torch.expm1(-priors.delta * params.mu * dt)
-    spont_death = torch.bernoulli(p_spont, generator=gen).to(torch.bool)
-    n_scaleouts = torch.poisson(scaleout_rate(params, priors) * dt * alive_f,
-                                generator=gen)
-    extra = torch.poisson(n_scaleouts * params.sig, generator=gen)
+    spont_death = rows(lambda p, g: torch.bernoulli(p, generator=g),
+                       p_spont).to(torch.bool)
+    # on the CPU a power is rounded by the element's place in its tensor
+    # (vector body or scalar tail), so a batch takes mu**nu run by run there;
+    # the card rounds every element alike
+    mu_nu = (params.mu ** priors.nu if params.mu.device.type != "cpu"
+             else rows(lambda mu, g: mu ** priors.nu, params.mu))
+    poisson = lambda rate, g: torch.poisson(rate, generator=g)
+    n_scaleouts = rows(poisson, params.lam * mu_nu * dt * alive_f)
+    extra = rows(poisson, n_scaleouts * params.sig)
     scaleout_cores = n_scaleouts + extra
     return StepEvents(core_deaths, spont_death, n_scaleouts, scaleout_cores)

@@ -66,6 +66,16 @@
 //     replays included; each stream has its own barrier (the launcher picks
 //     the slot), so launches in flight never share one.
 //     No float atomics: the result is bitwise equal from run to run.
+//   * Runs (mc_agg_belief: R slot tables of D rows, [R, D] columns, out
+//     [R, 2N]): the TPU kernel got a run axis from vmap over its grid; here
+//     it is one launch for all R runs, each summed exactly as a one-run
+//     launch sums it. A run keeps its own virtual grid of g CTAs (g the
+//     one-run launch's grid for D rows); the one wave of physical CTAs walks
+//     the R g (run, virtual CTA) items in turn, writes each item's partials
+//     to [R, 2N, g] and clears its sums, and after the one grid barrier each
+//     (run, output) is added in the same lane order. The one-run launches
+//     are the case R = 1 of the same kernel, so a run's result has the bits
+//     of a one-run launch on its rows.
 //
 // Build without --use_fast_math: the closed forms rely on accurate log1pf,
 // expm1f and lgammaf, and the pack on IEEE division.
@@ -113,7 +123,8 @@ __device__ __forceinline__ float bcast(float v, int src) {
 
 // --- how a row's parameters arrive -----------------------------------------
 // A CTA stages its block of R rows in shared memory before the math:
-//   load(e, row0, R, d): element e of the block of rows row0 .. row0+R-1,
+//   load(e, base, row0, R, d): element e of the block of rows row0 ..
+//     row0+R-1 of the table of d rows that starts at row base (a run's),
 //     the thread e's one load, neighbouring threads on neighbouring
 //     addresses; rows past d read as 1 (benign, never summed or stored);
 //   put(e, v, R, raw_s, rows_s): its place in shared memory;
@@ -126,9 +137,11 @@ struct PackedRow {
   static constexpr int kRaw = kCols;   // elements staged a row
   const float* __restrict__ params;    // [D, 16]
 
-  __device__ __forceinline__ float load(int e, int row0, int, int d) const {
-    return row0 + e / kCols < d ? __ldg(params + (size_t)row0 * kCols + e)
-                                : 1.0f;
+  __device__ __forceinline__ float load(int e, size_t base, int row0, int,
+                                        int d) const {
+    return row0 + e / kCols < d
+               ? __ldg(params + (base + row0) * kCols + e)
+               : 1.0f;
   }
   __device__ __forceinline__ void put(int e, float v, int, float*,
                                       float* rows_s) const {
@@ -161,15 +174,16 @@ struct BeliefRow {
   PackConsts k;
 
   // element e = column c, row r: c = e / R, r = e % R (raw_s[c][r])
-  __device__ __forceinline__ float load(int e, int row0, int R, int d) const {
+  __device__ __forceinline__ float load(int e, size_t base, int row0, int R,
+                                        int d) const {
     const int c = e / R, row = row0 + e % R;
     if (row >= d) return 1.0f;
     const float* p = col[0];
 #pragma unroll
     for (int i = 1; i < 7; ++i)   // constant indices: no local copy of col
       if (c == i) p = col[i];
-    if (c < 7) return __ldg(p + row);
-    return alive == nullptr ? 1.0f : (float)__ldg(alive + row);
+    if (c < 7) return __ldg(p + base + row);
+    return alive == nullptr ? 1.0f : (float)__ldg(alive + base + row);
   }
   __device__ __forceinline__ void put(int e, float v, int, float* raw_s,
                                       float*) const {
@@ -428,7 +442,7 @@ rows_kernel(Loader ld, const float* __restrict__ t,
   const int rows = blockDim.x >> 5, row0 = blockIdx.x * rows;
   const float w = t[n - 1] / (float)nd;
   if (threadIdx.x < rows * Loader::kRaw)
-    ld.put(threadIdx.x, ld.load(threadIdx.x, row0, rows, d), rows, raw_s,
+    ld.put(threadIdx.x, ld.load(threadIdx.x, 0, row0, rows, d), rows, raw_s,
            &rows_s[0][0]);
   __syncthreads();
   // the pack (first warp) and the survival terms (the others) run together
@@ -449,14 +463,18 @@ rows_kernel(Loader ld, const float* __restrict__ t,
   }
 }
 
-// Masked aggregate, out[0:n] = EL, out[n:2n] = VL. CTA c takes the blocks
-// of kAggRowsPerCta rows c, c + gridDim.x, ...; half h of warp w takes row
-// 2w + h of each. partial is [2n][gridDim.x] scratch.
+// Masked aggregate over `runs` tables of d rows each (run r's rows start at
+// row r d of every column): out[r 2n : r 2n + n] = run r's EL, the next n
+// its VL. Run r has a virtual grid of g CTAs: virtual CTA c takes the
+// blocks of kAggRowsPerCta rows c, c + g, ... of its run, half h of warp w
+// row 2w + h of each. The gridDim.x physical CTAs (one wave) take the runs
+// g items (run r, virtual CTA c), item i = r g + c, in turns: CTA p the
+// items p, p + gridDim.x, ... partial is [runs][2n][g] scratch.
 template <class Loader>
 __global__ void __launch_bounds__(kAggWarps * 32, 1)
 agg_kernel(Loader ld, const float* __restrict__ t,
            const int* __restrict__ idx, const float* __restrict__ frac,
-           int d, int n, int nd, float* __restrict__ partial,
+           int runs, int d, int n, int nd, int g, float* __restrict__ partial,
            float* __restrict__ out, int slot) {
   extern __shared__ float acc_s[];                  // [kAggWarps][2n]
   __shared__ float raw_s[kAggRowsPerCta * kCols];
@@ -468,19 +486,31 @@ agg_kernel(Loader ld, const float* __restrict__ t,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int half = lane >> 4, j = lane & (kAggLanes - 1);
   const int my = warp * 2 + half;                   // row in the block
-  const int g = gridDim.x;
+  const int items = runs * g, ctas = gridDim.x;
   float* acc = acc_s + (size_t)warp * 2 * n;
   for (int k = lane; k < 2 * n; k += 32) acc[k] = 0.0f;
 
   const float w = t[n - 1] / (float)nd;
   const int stride = g * kAggRowsPerCta;
-  int row0 = blockIdx.x * kAggRowsPerCta;
-  float raw = tid < kStaged ? ld.load(tid, row0, kAggRowsPerCta, d) : 0.0f;
-  for (; row0 < d; row0 += stride) {
-    // the next block's columns go out before this block's math
+  // the CTA's place: item `item`, the block of rows from row0 of its run
+  int item = blockIdx.x;
+  int row0 = item % g * kAggRowsPerCta;
+  float raw = tid < kStaged && item < items
+                  ? ld.load(tid, (size_t)(item / g) * d, row0,
+                            kAggRowsPerCta, d)
+                  : 0.0f;
+  while (item < items) {
+    // the next place, and its block's columns loaded before this block's
+    // math
+    int next_item = item, next_row0 = row0 + stride;
+    if (next_row0 >= d) {
+      next_item = item + ctas;
+      next_row0 = next_item % g * kAggRowsPerCta;
+    }
     const float next_raw =
-        tid < kStaged && row0 + stride < d
-            ? ld.load(tid, row0 + stride, kAggRowsPerCta, d)
+        tid < kStaged && next_item < items
+            ? ld.load(tid, (size_t)(next_item / g) * d, next_row0,
+                      kAggRowsPerCta, d)
             : 0.0f;
     if (tid < kStaged) ld.put(tid, raw, kAggRowsPerCta, raw_s, &rows_s[0][0]);
     __syncthreads();
@@ -508,21 +538,33 @@ agg_kernel(Loader ld, const float* __restrict__ t,
         acc[n + k] += v;
       }
     }
-    __syncthreads();   // staged rows and ed_s read before they are rewritten
+    __syncthreads();   // staged rows, ed_s and the sums read before they
+                       // are rewritten
+    if (next_item != item) {
+      // the item is done: its CTA sum (the warps in order) to partial, and
+      // the sums cleared for the next item; thread k alone touches column k
+      float* pr = partial + (size_t)(item / g) * 2 * n * g + item % g;
+      for (int k = tid; k < 2 * n; k += blockDim.x) {
+        float s = 0.0f;
+        for (int wi = 0; wi < kAggWarps; ++wi) {
+          s += acc_s[(size_t)wi * 2 * n + k];
+          acc_s[(size_t)wi * 2 * n + k] = 0.0f;
+        }
+        pr[(size_t)k * g] = s;
+      }
+    }
+    item = next_item;
+    row0 = next_row0;
     raw = next_raw;
   }
 
-  for (int k = tid; k < 2 * n; k += blockDim.x) {
-    float s = 0.0f;
-    for (int wi = 0; wi < kAggWarps; ++wi) s += acc_s[(size_t)wi * 2 * n + k];
-    partial[(size_t)k * g + blockIdx.x] = s;
-  }
-  grid_barrier(&g_barrier[slot], g);
-  // output k: CTA k % g, warp k / g % kAggWarps; lane c adds CTAs c, c + 32,
-  // ... in turn (its first kFinalLoads partials loaded together), then a
-  // butterfly over the lanes
-  for (int k = blockIdx.x + g * warp; k < 2 * n; k += g * kAggWarps) {
-    const float* pk = partial + (size_t)k * g;
+  grid_barrier(&g_barrier[slot], ctas);
+  // output o = r 2n + k: CTA o % ctas, warp o / ctas % kAggWarps; lane c adds
+  // the run's virtual CTAs c, c + 32, ... in turn (its first kFinalLoads
+  // partials loaded together), then a butterfly over the lanes
+  for (int o = blockIdx.x + ctas * warp; o < runs * 2 * n;
+       o += ctas * kAggWarps) {
+    const float* pk = partial + (size_t)o * g;
     float v[kFinalLoads];
 #pragma unroll
     for (int m = 0; m < kFinalLoads; ++m) {
@@ -537,7 +579,7 @@ agg_kernel(Loader ld, const float* __restrict__ t,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(kFull, s, off);
-    if (lane == 0) out[k] = s;
+    if (lane == 0) out[o] = s;
   }
 }
 
@@ -575,14 +617,16 @@ int launch_rows(const Loader& ld, const float* t, const int* idx,
   return (int)cudaGetLastError();
 }
 
+// `runs` tables of d rows on a virtual grid of g CTAs each, run by `ctas`
+// physical CTAs (one wave: at most the CTAs the card holds at once).
 template <class Loader>
 int launch_agg(const Loader& ld, const float* t, const int* idx,
-               const float* frac, int d, int n, int nd, int grid,
-               float* partial, float* out, int slot, void* stream) {
+               const float* frac, int runs, int d, int n, int nd, int g,
+               int ctas, float* partial, float* out, int slot, void* stream) {
   cudaError_t err = agg_prepare<Loader>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
+  cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(kAggWarps * 32);
   cfg.dynamicSmemBytes = agg_smem_bytes(n);
   cfg.stream = (cudaStream_t)stream;
@@ -591,8 +635,8 @@ int launch_agg(const Loader& ld, const float* t, const int* idx,
   attr.val.cooperative = 1;                   // grid barrier needs it
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, agg_kernel<Loader>, ld, t, idx, frac, d, n,
-                           nd, partial, out, slot);
+  err = cudaLaunchKernelEx(&cfg, agg_kernel<Loader>, ld, t, idx, frac, runs,
+                           d, n, nd, g, partial, out, slot);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -665,21 +709,26 @@ int mc_rows_belief(const float* mu_a, const float* mu_b, const float* lam_a,
 int mc_agg(const float* params, const float* t, const int* idx,
            const float* frac, int d, int n, int nd, int grid, float* partial,
            float* out, int slot, void* stream) {
-  return launch_agg(PackedRow{params}, t, idx, frac, d, n, nd, grid, partial,
-                    out, slot, stream);
+  return launch_agg(PackedRow{params}, t, idx, frac, 1, d, n, nd, grid, grid,
+                    partial, out, slot, stream);
 }
 
-// Masked aggregate from the belief columns and the bool ALIVE column.
+// Masked aggregates from the belief columns and the bool ALIVE column, of
+// `runs` runs in one launch: the columns are [runs, d] (run r's rows at
+// r d; one run: runs = 1), out [runs, 2n] (each run's EL, then its VL);
+// partial is scratch of runs 2 n g floats. g is a one-run launch's grid for
+// d rows; ctas <= runs g and <= the CTAs the card holds at once.
 int mc_agg_belief(const float* mu_a, const float* mu_b, const float* lam_a,
                   const float* lam_b, const float* sig_a, const float* sig_b,
                   const float* cores, const unsigned char* alive, float nu,
                   float nu_m1, float two_nu, float two_nu_m2, float delta,
-                  const float* t, const int* idx, const float* frac, int d,
-                  int n, int nd, int grid, float* partial, float* out,
-                  int slot, void* stream) {
+                  const float* t, const int* idx, const float* frac, int runs,
+                  int d, int n, int nd, int g, int ctas, float* partial,
+                  float* out, int slot, void* stream) {
   return launch_agg(belief_row(mu_a, mu_b, lam_a, lam_b, sig_a, sig_b, cores,
                                alive, nu, nu_m1, two_nu, two_nu_m2, delta),
-                    t, idx, frac, d, n, nd, grid, partial, out, slot, stream);
+                    t, idx, frac, runs, d, n, nd, g, ctas, partial, out, slot,
+                    stream);
 }
 
 // The aggregate kernel's residency on the current device at n grid points

@@ -8,7 +8,9 @@ Each kernel comes in two forms, by how a row's parameters arrive:
 
   * ``moment_curves_belief``     -> (EL, VL), each [D, N]   (per-row curves)
   * ``moment_curves_agg_belief`` -> (EL, VL), each [N]      (sum over rows
-    weighted by ``alive``: the cluster aggregate)
+    weighted by ``alive``: the cluster aggregate); given R runs' slot
+    tables (columns [R, D]), each [R, N] from one launch, run r's with the
+    bits of a launch on its rows alone
 
 * packed form (the TPU kernel's interface): packed rows ``params [D, 16]``
   (column layout in ``ref.py``).
@@ -67,8 +69,9 @@ def _library() -> ctypes.CDLL:
     lib.mc_rows.argtypes = [_P, *grids, _P, _P, _P]
     lib.mc_rows_belief.argtypes = [*cols, *consts, *grids, _P, _P, _P]
     lib.mc_agg.argtypes = [_P, *grids, _I, _P, _P, _I, _P]
-    lib.mc_agg_belief.argtypes = [*cols, _P, *consts, *grids, _I, _P, _P, _I,
-                                  _P]
+    # t, idx, frac, runs, d, n, nd, g, ctas
+    lib.mc_agg_belief.argtypes = [*cols, _P, *consts, _P, _P, _P, *[_I] * 6,
+                                  _P, _P, _I, _P]
     lib.mc_agg_capacity.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
     lib.mc_empty.argtypes = [_P]
     for fn in (lib.mc_rows, lib.mc_rows_belief, lib.mc_agg, lib.mc_agg_belief,
@@ -138,28 +141,33 @@ def _check_grids(dev, t, idx, frac, nd: int) -> int:
 
 
 def _check_belief(bel, cores, alive, t, idx, frac, nd: int) -> int:
-    """Validate the belief form's inputs; returns N."""
+    """Validate the belief form's inputs (columns [D], or R runs' [R, D]);
+    returns N."""
     cols = (*bel, cores)
-    dev, d = cores.device, cores.shape[0]
+    dev, shape = cores.device, tuple(cores.shape)
+    dims = "[D] or [R, D]"
+    if len(shape) not in (1, 2):
+        raise ValueError(f"belief columns and cores must be contiguous "
+                         f"{dims}, got {shape}")
     for x in cols:
         if x.dtype != F32:
             raise TypeError(f"belief columns and cores must be float32, got "
                             f"{x.dtype}")
         if x.device != dev:
             raise ValueError(f"belief columns on {x.device} and {dev}")
-        if x.shape != (d,) or not x.is_contiguous():
+        if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"belief columns and cores must be contiguous "
-                             f"[D], got {tuple(x.shape)} against ({d},)")
+                             f"{dims}, got {tuple(x.shape)} against {shape}")
     if alive is not None:
         if alive.dtype != torch.bool:
             raise TypeError(f"alive must be torch.bool, got {alive.dtype}")
         if alive.device != dev:
             raise ValueError(f"alive is on {alive.device}, the rows on {dev}")
-        if alive.shape != (d,) or not alive.is_contiguous():
-            raise ValueError(f"alive must be contiguous [{d}], got "
+        if tuple(alive.shape) != shape or not alive.is_contiguous():
+            raise ValueError(f"alive must be contiguous {list(shape)}, got "
                              f"{tuple(alive.shape)}")
-    if d < 1:
-        raise ValueError("no rows")
+    if 0 in shape:
+        raise ValueError("no rows" if shape[-1] == 0 else "no runs")
     return _check_grids(dev, t, idx, frac, nd)
 
 
@@ -198,11 +206,13 @@ def _call(dev: torch.device, fn, *args) -> None:
     raise_on_error(err, fn.__name__)
 
 
-def _agg_grid(dev, belief: bool, d: int, n: int) -> int:
-    """CTAs of one aggregate launch: every block of rows at once, or as
-    many CTAs as the card holds at once."""
+def _agg_grid(dev, belief: bool, d: int, n: int) -> tuple[int, int]:
+    """(CTAs of a one-run aggregate launch over ``d`` rows, CTAs the card
+    holds at once): the grid takes every block of rows at once, or as many
+    CTAs as the card holds."""
     res = agg_residency(belief, n, dev)
-    return min(-(-d // AGG_ROWS_PER_CTA), res["ctas_per_sm"] * res["sms"])
+    resident = res["ctas_per_sm"] * res["sms"]
+    return min(-(-d // AGG_ROWS_PER_CTA), resident), resident
 
 
 def moment_curves_belief(bel: GammaBelief, cores: torch.Tensor,
@@ -211,6 +221,9 @@ def moment_curves_belief(bel: GammaBelief, cores: torch.Tensor,
                          priors: PopulationPriors):
     """Per-row curves (EL, VL), each [D, N], from the belief columns."""
     n = _check_belief(bel, cores, None, t, idx, frac, nd)
+    if cores.ndim != 1:
+        raise ValueError(f"per-row curves take columns [D], got "
+                         f"{tuple(cores.shape)}")
     dev = cores.device
     if dev.type == "cpu":
         return moment_curves_belief_ref(bel, cores, t, idx, frac, nd, priors)
@@ -230,8 +243,12 @@ def moment_curves_agg_belief(bel: GammaBelief, cores: torch.Tensor,
                              alive: torch.Tensor, t: torch.Tensor,
                              idx: torch.Tensor, frac: torch.Tensor, nd: int,
                              priors: PopulationPriors):
-    """Aggregate curves (EL, VL), each [N]: sums over rows weighted by
-    ``alive``, reduced in a fixed order (bitwise deterministic)."""
+    """Aggregate curves (EL, VL): sums over rows weighted by ``alive``,
+    reduced in a fixed order (bitwise deterministic). Columns [D] give each
+    [N]; R runs' columns [R, D] give each [R, N] from one launch, run r's
+    with the bits of a launch on its rows alone. The scratch for the CTA
+    partials ([R, 2N, g] floats, g the one-run grid) is allocated with the
+    output at every call."""
     n = _check_belief(bel, cores, alive, t, idx, frac, nd)
     _check_agg_n(n)
     dev = cores.device
@@ -239,16 +256,19 @@ def moment_curves_agg_belief(bel: GammaBelief, cores: torch.Tensor,
         return moment_curves_agg_belief_ref(bel, cores, alive, t, idx, frac,
                                             nd, priors)
     lib = _library()
-    d = cores.shape[0]
-    grid = _agg_grid(dev, True, d, n)
-    out = torch.empty(2 * n * (1 + grid), dtype=F32, device=dev)
+    runs, d = (1, *cores.shape) if cores.ndim == 1 else cores.shape
+    grid, resident = _agg_grid(dev, True, d, n)
+    size = 2 * n * runs
+    out = torch.empty(size * (1 + grid), dtype=F32, device=dev)
     stream, ptr = _stream(dev), out.data_ptr()
     _call(dev, lib.mc_agg_belief, *(x.data_ptr() for x in bel),
           cores.data_ptr(), alive.data_ptr(), *pack_constants(priors),
-          t.data_ptr(), idx.data_ptr(), frac.data_ptr(), d, n, nd, grid,
-          ptr + 8 * n, ptr, _barrier_slot(dev.index, stream), stream)
+          t.data_ptr(), idx.data_ptr(), frac.data_ptr(), runs, d, n, nd, grid,
+          min(runs * grid, resident), ptr + 4 * size, ptr,
+          _barrier_slot(dev.index, stream), stream)
     LAUNCHES["moment_curves_agg_belief"] += 1
-    return out[:n], out[n:2 * n]
+    curves = out[:size].view(*cores.shape[:-1], 2, n)
+    return curves[..., 0, :], curves[..., 1, :]
 
 
 def moment_curves_packed(params: torch.Tensor, t: torch.Tensor,
@@ -279,7 +299,7 @@ def moment_curves_agg_packed(params: torch.Tensor, t: torch.Tensor,
     if dev.type == "cpu":
         return moment_curves_agg_packed_ref(params, t, idx, frac, nd)
     d = params.shape[0]
-    grid = _agg_grid(dev, False, d, n)
+    grid, _ = _agg_grid(dev, False, d, n)
     out = torch.empty(2 * n * (1 + grid), dtype=F32, device=dev)
     stream, ptr = _stream(dev), out.data_ptr()
     _call(dev, _library().mc_agg, params.data_ptr(), t.data_ptr(),

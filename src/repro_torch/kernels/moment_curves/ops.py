@@ -12,7 +12,8 @@ ragged edge of D themselves, so nothing is padded.
   ``core.moments.moment_curves`` (midpoint D-term on ``d_points`` uniform
   checkpoints).
 * ``aggregate_moment_curves_kernel`` — cluster-wide masked sums [N]; drop-in
-  for ``core.moments.aggregate_moment_curves``.
+  for ``core.moments.aggregate_moment_curves``. Given the slot tables of R
+  runs (columns [R, D]) it returns each run's sums, [R, N], from one launch.
 
 On CUDA tensors they launch the kernels; on CPU tensors the launchers run
 the plain PyTorch versions in ``ref.py`` (``pack_belief``, then the packed
@@ -84,7 +85,8 @@ def aggregate_moment_curves_kernel(
         bel: GammaBelief, cores: torch.Tensor, alive: torch.Tensor,
         t_grid: torch.Tensor, priors: PopulationPriors, *,
         d_points: int = 32) -> MomentCurves:
-    """Aggregate (sum over alive slots) curves [N] via the aggregate kernel."""
+    """Aggregate (sum over alive slots) curves via the aggregate kernel:
+    [N] for bel fields/cores/alive [D], [R, N] for R runs' [R, D]."""
     el, vl = moment_curves_agg_belief(bel, cores, alive,
                                       *_grid_of(t_grid, d_points), priors)
     return MomentCurves(EL=el, VL=vl)

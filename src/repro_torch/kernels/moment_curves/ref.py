@@ -11,12 +11,15 @@ Belief form, the launchers' ``moment_curves_belief`` /
 ``moment_curves_agg_belief``: the slot table's ``GammaBelief`` columns,
 ``cores`` and (aggregate) the bool ``alive`` column, packed here by
 ``core.moments.pack_belief`` and then evaluated by the packed versions.
+Given R runs' tables (columns [R, D]), the aggregate is the one-run
+version's, run by run.
 
 The launchers take these on CPU tensors, and the card's smoke test holds
 each kernel against them; the main path on the card never calls them.
-``pack_in_kernel_order`` and ``agg_in_kernel_order`` repeat on the CPU,
-step for step, the belief kernel's in-register pack and the aggregate
-kernel's order of summation, for the tests.
+``pack_in_kernel_order`` and ``agg_in_kernel_order`` (``_runs``: for each
+run of a batch) repeat on the CPU, step for step, the belief kernel's
+in-register pack and the aggregate kernel's order of summation, for the
+tests.
 """
 from __future__ import annotations
 
@@ -157,7 +160,13 @@ def moment_curves_agg_belief_ref(bel: GammaBelief, cores: torch.Tensor,
                                  alive: torch.Tensor, t: torch.Tensor,
                                  idx: torch.Tensor, frac: torch.Tensor,
                                  nd: int, priors: PopulationPriors):
-    """Sum over rows weighted by ``alive``: (EL, VL), each [N]."""
+    """Sum over rows weighted by ``alive``: (EL, VL), each [N]; for R
+    runs' columns [R, D], each [R, N], run by run."""
+    if cores.ndim == 2:
+        per_run = [moment_curves_agg_belief_ref(
+            GammaBelief(*(x[r] for x in bel)), cores[r], alive[r], t, idx,
+            frac, nd, priors) for r in range(cores.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*per_run))
     return moment_curves_agg_packed_ref(
         pack_rows(bel, cores, priors, alive=alive), t, idx, frac, nd)
 
@@ -215,3 +224,14 @@ def agg_in_kernel_order(el: torch.Tensor, vl: torch.Tensor,
     for off in (16, 8, 4, 2, 1):
         lanes = lanes + lanes[torch.arange(32) ^ off]
     return lanes[0, :n], lanes[0, n:]
+
+
+def agg_in_kernel_order_runs(el: torch.Tensor, vl: torch.Tensor,
+                             mask: torch.Tensor, ctas: int):
+    """The batched aggregate kernel's order of summation: each run's curves
+    ``el``, ``vl`` [R, D, N] weighted by its ``mask`` [R, D], summed as
+    ``agg_in_kernel_order`` sums one run on a grid of ``ctas`` CTAs (the
+    run's virtual grid in the kernel). Returns (EL, VL), each [R, N]."""
+    per_run = [agg_in_kernel_order(el[r], vl[r], mask[r], ctas)
+               for r in range(el.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*per_run))

@@ -9,7 +9,8 @@ mode, no mesh and no telemetry:
   * ``make_admission_core(cfg, grid, policy_kind, device="cuda")`` — closes
     over the static configuration and returns an ``AdmissionCore`` bundle:
 
-      - ``init()``                         fresh empty state
+      - ``init(runs=None)``                fresh empty state (of ``runs``
+                                           runs: a leading run axis)
       - ``refresh_aggregates(cs)``         full aggregate recompute
       - ``sample_events(gen, slots)``      one step's random events
       - ``apply_step_events(slots, ev)``   deaths / scale-out grants /
@@ -23,6 +24,16 @@ Splitting the step's sampling from its arithmetic lets a test hand the JAX
 package's own event draws to the port (the two packages' random bits
 differ). Everything runs on the core's ``device`` and in float32; nothing in
 a step reads a value back to the host.
+
+Runs: every function takes the state of one run (slot leaves [S], the
+aggregate [N]) or of R runs at once (a leading run axis: [R, S], [R, N],
+arrivals [R, A]), where the JAX package vmaps. Each run of a batch gets the
+bits it gets alone: every reduction inside a run is over integer counts
+(exact in any order), the aggregate kernel sums each run in the one-run
+order, the candidates' curves are per row, and placed candidates are folded
+into the aggregate one at a time in arrival order (the admit loop's running
+aggregate, capped at the free slots). Each run's events come
+from its own generator (``sample_events(gens, slots)``).
 
 One deliberate difference from the JAX package: ``SimConfig`` defaults to the
 kernel lanes (``use_kernel=True``, ``agg_backend="kernel"``), because the
@@ -215,8 +226,9 @@ class CoreState(NamedTuple):
     ``None``."""
 
     slots: SimState
-    agg_el: torch.Tensor          # [N] aggregate E[L_n] over admitted slots
-    agg_vl: torch.Tensor          # [N] aggregate V[L_n]
+    agg_el: torch.Tensor          # [N] ([R, N]) aggregate E[L_n] over
+                                  # admitted slots
+    agg_vl: torch.Tensor          # [N] ([R, N]) aggregate V[L_n]
     tel: Optional[object] = None
 
 
@@ -229,8 +241,10 @@ class StepOutcome(NamedTuple):
     departed: torch.Tensor        # deployments that died this step
 
 
-def _init_state(cfg: SimConfig, device) -> SimState:
-    s = cfg.max_slots
+def _init_state(cfg: SimConfig, device, runs: Optional[int] = None
+                ) -> SimState:
+    lead = () if runs is None else (runs,)
+    s = (*lead, cfg.max_slots)
     zeros = lambda shape: torch.zeros(shape, dtype=F32, device=device)
     return SimState(
         alive=torch.zeros(s, dtype=torch.bool, device=device),
@@ -238,10 +252,11 @@ def _init_state(cfg: SimConfig, device) -> SimState:
         params=DeploymentParams(lam=zeros(s),
                                 mu=torch.ones(s, dtype=F32, device=device),
                                 sig=zeros(s)),
-        bel=belief_from_prior(cfg.priors, (s,), device=device),
-        core_hours=zeros(()), fail_requests=zeros(()),
-        total_requests=zeros(()), arr_accepted=zeros(()),
-        arr_rejected=zeros(()), slot_overflow=zeros(()), n_departed=zeros(()),
+        bel=belief_from_prior(cfg.priors, s, device=device),
+        core_hours=zeros(lead), fail_requests=zeros(lead),
+        total_requests=zeros(lead), arr_accepted=zeros(lead),
+        arr_rejected=zeros(lead), slot_overflow=zeros(lead),
+        n_departed=zeros(lead),
     )
 
 
@@ -257,20 +272,22 @@ def _place_arrivals(state: SimState, accept: torch.Tensor,
     """
     alive = state.alive
     free = ~alive
-    rank = torch.cumsum(free.to(torch.int32), 0)          # free-slot rank, 1-based
+    rank = torch.cumsum(free.to(torch.int32), -1)         # free-slot rank, 1-based
     acc = accept.to(torch.int32)
-    ordinal = torch.cumsum(acc, 0) * acc                  # i-th accepted, 1-based
-    n_free = rank[-1]
+    ordinal = torch.cumsum(acc, -1) * acc                 # i-th accepted, 1-based
+    n_free = rank[..., -1:]
     placed_arrival = accept & (ordinal <= n_free)         # [A]
     overflow = state.slot_overflow + torch.sum(
-        (accept & ~placed_arrival).to(F32))
+        (accept & ~placed_arrival).to(F32), dim=-1)
 
-    hit = free[None, :] & (rank[None, :] == ordinal[:, None]) & accept[:, None]
-    placed = torch.any(hit, dim=0)                        # [S]
-    arrivals = torch.arange(accept.shape[0], device=accept.device)
-    src = torch.sum(hit.to(torch.int64) * arrivals[:, None], dim=0)  # [S]
+    hit = (free[..., None, :] & (rank[..., None, :] == ordinal[..., :, None])
+           & accept[..., :, None])                        # [A, S]
+    placed = torch.any(hit, dim=-2)                       # [S]
+    arrivals = torch.arange(accept.shape[-1], device=accept.device)
+    src = torch.sum(hit.to(torch.int64) * arrivals[:, None], dim=-2)  # [S]
 
-    merge = lambda old, new_a: torch.where(placed, new_a[src], old)
+    merge = lambda old, new_a: torch.where(
+        placed, torch.gather(new_a, -1, src), old)
     state = state._replace(
         alive=alive | placed,
         cores=merge(state.cores, stream_t.c0),
@@ -284,29 +301,39 @@ def _make_aggregate_fn(cfg: SimConfig, grid: torch.Tensor):
     """Cluster-wide sum-over-alive-slots curve evaluator, by backend.
 
     AGG_KERNEL is the aggregate kernel (CUDA on the card, its plain version
-    on the CPU); AGG_FUSED reduces 512-slot blocks with a left fold, as the
-    JAX package's fused path does; AGG_REFERENCE materializes [S, N] and sums
-    (the oracle).
+    on the CPU; R runs' tables in one launch); AGG_FUSED reduces 512-slot
+    blocks with a left fold, as the JAX package's fused path does;
+    AGG_REFERENCE materializes [S, N] and sums (the oracle). The two oracle
+    lanes take R runs' tables one run at a time.
     """
-    if cfg.agg_backend == AGG_REFERENCE:
-
-        def aggregate(bel, cores, alive):
-            curves = moment_curves(bel, cores, grid, cfg.priors,
-                                   d_points=cfg.d_points)
-            alive_f = alive.to(F32)[:, None]
-            return MomentCurves(EL=torch.sum(curves.EL * alive_f, dim=0),
-                                VL=torch.sum(curves.VL * alive_f, dim=0))
-    elif cfg.agg_backend == AGG_KERNEL:
+    if cfg.agg_backend == AGG_KERNEL:
         from ..kernels.moment_curves.ops import aggregate_moment_curves_kernel
 
         def aggregate(bel, cores, alive):
             return aggregate_moment_curves_kernel(
                 bel, cores, alive, grid, cfg.priors, d_points=cfg.d_points)
+
+        return aggregate
+    if cfg.agg_backend == AGG_REFERENCE:
+
+        def one_run(bel, cores, alive):
+            curves = moment_curves(bel, cores, grid, cfg.priors,
+                                   d_points=cfg.d_points)
+            alive_f = alive.to(F32)[:, None]
+            return MomentCurves(EL=torch.sum(curves.EL * alive_f, dim=0),
+                                VL=torch.sum(curves.VL * alive_f, dim=0))
     else:
 
-        def aggregate(bel, cores, alive):
+        def one_run(bel, cores, alive):
             return aggregate_moment_curves(bel, cores, alive, grid,
                                            cfg.priors, d_points=cfg.d_points)
+
+    def aggregate(bel, cores, alive):
+        if cores.ndim == 1:
+            return one_run(bel, cores, alive)
+        runs = [one_run(GammaBelief(*(x[r] for x in bel)), cores[r],
+                        alive[r]) for r in range(cores.shape[0])]
+        return MomentCurves(*(torch.stack(x) for x in zip(*runs)))
 
     return aggregate
 
@@ -322,24 +349,28 @@ def _make_curves_fn(cfg: SimConfig):
 
 def _make_candidates_fn(cfg: SimConfig, grid: torch.Tensor,
                         needs_moments: bool, n_grid: int, curves_fn):
-    """[A, N] candidate curves for one step's pre-drawn arrivals (zeros when
-    the policy ignores them)."""
+    """[A, N] candidate curves for one step's pre-drawn arrivals ([R, A, N]
+    for R runs': their R A rows in one call), zeros when the policy ignores
+    them."""
 
     def candidates(stream_t: ArrivalStream) -> MomentCurves:
+        lead = tuple(stream_t.c0.shape)
         if not needs_moments:
-            zeros = torch.zeros((stream_t.c0.shape[0], n_grid), dtype=F32,
+            zeros = torch.zeros((*lead, n_grid), dtype=F32,
                                 device=stream_t.c0.device)
             return MomentCurves(EL=zeros, VL=zeros)
-        return curves_fn(stream_t.bel, stream_t.c0, grid, cfg.priors,
-                         d_points=cfg.d_points)
+        rows = lambda x: x.reshape(-1)
+        curves = curves_fn(GammaBelief(*map(rows, stream_t.bel)),
+                           rows(stream_t.c0), grid, cfg.priors,
+                           d_points=cfg.d_points)
+        return MomentCurves(*(x.reshape(*lead, n_grid) for x in curves))
 
     return candidates
 
 
-def _sample_events(cfg: SimConfig, gen: torch.Generator,
-                   slots: SimState) -> StepEvents:
+def _sample_events(cfg: SimConfig, gen, slots: SimState) -> StepEvents:
     """One step's random events for the slot table (dead slots get zero
-    rates)."""
+    rates); ``gen`` is a generator, or one for each run of [R, S] slots."""
     return sample_step_events(gen, slots.params, slots.cores, cfg.priors,
                               cfg.dt, alive=slots.alive)
 
@@ -358,17 +389,17 @@ def _apply_step_events(cfg: SimConfig, slots: SimState, ev: StepEvents,
     cores = slots.cores - deaths
     cores = torch.where(ev.spont_death & slots.alive, 0.0, cores)
     alive = slots.alive & (cores > 0.0)
-    departed = torch.sum((slots.alive & ~alive).to(F32))
+    departed = torch.sum((slots.alive & ~alive).to(F32), dim=-1)
     alive_f = alive.to(F32)
 
     # 2. scale-outs (only deployments still alive request) ---------------
     req = ev.scaleout_cores.to(F32) * alive_f
     n_req = ev.n_scaleouts.to(F32) * alive_f
-    util = torch.sum(cores * alive_f)
-    grant = (util + torch.cumsum(req, 0)) <= capacity
+    util = torch.sum(cores * alive_f, dim=-1)
+    grant = (util[..., None] + torch.cumsum(req, -1)) <= capacity
     cores = cores + torch.where(grant, req, 0.0)
-    failed = torch.sum(torch.where(grant, 0.0, n_req))
-    util = torch.sum(cores * alive_f)
+    failed = torch.sum(torch.where(grant, 0.0, n_req), dim=-1)
+    util = torch.sum(cores * alive_f, dim=-1)
 
     # 3. belief updates (requests are observed whether or not granted) ---
     bel = update_on_events(
@@ -377,7 +408,8 @@ def _apply_step_events(cfg: SimConfig, slots: SimState, ev: StepEvents,
         priors=cfg.priors)
     slots = slots._replace(alive=alive, cores=cores, bel=bel)
     return slots, StepOutcome(util=util, failed=failed,
-                              n_requests=torch.sum(n_req), departed=departed)
+                              n_requests=torch.sum(n_req, dim=-1),
+                              departed=departed)
 
 
 class AdmissionCore(NamedTuple):
@@ -390,7 +422,7 @@ class AdmissionCore(NamedTuple):
     needs_moments: bool
     n_grid: int
     device: torch.device
-    init: Callable[[], CoreState]
+    init: Callable[..., CoreState]
     refresh_aggregates: Callable[[CoreState], CoreState]
     sample_events: Callable[..., StepEvents]
     apply_step_events: Callable[..., tuple]
@@ -419,23 +451,25 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
     candidates_fn = _make_candidates_fn(cfg, grid, needs_moments, n_grid,
                                         _make_curves_fn(cfg))
 
-    def zeros_grid():
-        return torch.zeros((n_grid,), dtype=F32, device=device)
-
-    def init() -> CoreState:
-        return CoreState(slots=_init_state(cfg, device), agg_el=zeros_grid(),
-                         agg_vl=zeros_grid())
+    def init(runs: Optional[int] = None) -> CoreState:
+        """A fresh empty state: of one run, or of ``runs`` runs."""
+        lead = () if runs is None else (runs,)
+        zeros = lambda: torch.zeros((*lead, n_grid), dtype=F32,
+                                    device=device)
+        return CoreState(slots=_init_state(cfg, device, runs), agg_el=zeros(),
+                         agg_vl=zeros())
 
     def refresh_aggregates(cs: CoreState) -> CoreState:
         """Full aggregate recompute from the slot table (block boundary).
         Zeroth-moment policies never read the curves, so their refresh
         keeps the zero placeholder instead of paying for the reduction."""
         if not needs_moments:
-            return cs._replace(agg_el=zeros_grid(), agg_vl=zeros_grid())
+            return cs._replace(agg_el=torch.zeros_like(cs.agg_el),
+                               agg_vl=torch.zeros_like(cs.agg_vl))
         agg = aggregate_fn(cs.slots.bel, cs.slots.cores, cs.slots.alive)
         return cs._replace(agg_el=agg.EL, agg_vl=agg.VL)
 
-    def sample_events(gen: torch.Generator, slots: SimState) -> StepEvents:
+    def sample_events(gen, slots: SimState) -> StepEvents:
         return _sample_events(cfg, gen, slots)
 
     def apply_step_events(slots: SimState, events: StepEvents,
@@ -443,7 +477,7 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         cap = cfg.capacity if capacity is None else capacity
         return _apply_step_events(cfg, slots, events, cap)
 
-    def apply_events(gen: torch.Generator, cs: CoreState, capacity=None):
+    def apply_events(gen, cs: CoreState, capacity=None):
         """One ``dt``-hour step of cluster dynamics with freshly sampled
         events. The maintained aggregate is NOT touched — within-block
         staleness is the ``agg_refresh_steps`` contract."""
@@ -454,18 +488,22 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
     def _decide_core(policy: PolicyParams, cs: CoreState, util,
                      cand: MomentCurves, stream_t: ArrivalStream, valid,
                      verbose: bool):
+        # the placed candidates' fold is the admit loop's running aggregate
+        # capped at the free slots: added one at a time in arrival order,
+        # the same for a run alone and in a batch
+        room = (torch.sum(~cs.slots.alive, dim=-1) if needs_moments
+                else None)
         if verbose:
             res, diag = admit_sequential_verbose(
-                policy, cs.agg_el, cs.agg_vl, util, cand, stream_t.c0, valid)
+                policy, cs.agg_el, cs.agg_vl, util, cand, stream_t.c0, valid,
+                room=room)
         else:
             res = admit_sequential(policy, cs.agg_el, cs.agg_vl, util, cand,
-                                   stream_t.c0, valid)
+                                   stream_t.c0, valid, room=room)
             diag = None
-        slots, placed_arrival = _place_arrivals(cs.slots, res.accept,
-                                                stream_t)
-        placed_f = placed_arrival.to(F32)
-        agg_el = cs.agg_el + torch.einsum("an,a->n", cand.EL, placed_f)
-        agg_vl = cs.agg_vl + torch.einsum("an,a->n", cand.VL, placed_f)
+        slots, _ = _place_arrivals(cs.slots, res.accept, stream_t)
+        agg_el, agg_vl = ((res.agg_el, res.agg_vl) if needs_moments
+                          else (cs.agg_el, cs.agg_vl))
         return CoreState(slots=slots, agg_el=agg_el,
                          agg_vl=agg_vl), res.accept, diag
 

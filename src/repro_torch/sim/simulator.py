@@ -17,14 +17,22 @@ aggregate moment curves are recomputed once per block (through
 ``cfg.agg_backend``; the aggregate kernel on the card) and maintained
 incrementally inside the block by folding placed candidates' curves.
 
-PyTorch counterpart of ``repro.sim.simulator.make_run``, where the JAX
-package's ``lax.scan`` is a Python loop. The loop never reads a device value
-back to the host, so on the card it only enqueues work.
+PyTorch counterpart of ``repro.sim.simulator.make_run``, ``run_keyed_batch``
+and ``run_batch``, where the JAX package's ``lax.scan`` is a Python loop and
+its ``vmap`` over runs a leading run axis written out: a batch of R runs
+steps R slot tables together, so one step's ~400 launches serve all R runs.
+Run r of a batch has the bits of ``make_run`` alone on its seed: its
+arrivals and events come from its own ``torch.Generator``, drawn in the
+order a single run draws them (four small draws a run a step), and the
+step's arithmetic gives each run the bits it gets alone (``sim.core``).
+The loop never reads a device value back to the host, so on the card it
+only enqueues work.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..core.policies import PolicyParams
@@ -33,8 +41,14 @@ from .core import (ArrivalSource, ArrivalStream, PriorArrivalSource,
                    SimConfig, SimState, StepOutcome, make_admission_core,
                    tree_to)
 
+# where a device mesh will be ported
+_ROADMAP_MESH = "is not ported yet: ROADMAP.md, Queue A, item 5 (mesh)"
+
 
 class RunMetrics(NamedTuple):
+    """A run's metrics: 0-d leaves, traces [T]; a batch's have a leading
+    [R] (traces [R, T])."""
+
     utilization: torch.Tensor     # time-average active cores / capacity
     failure_rate: torch.Tensor    # failed scale-out requests / total requests
     total_requests: torch.Tensor
@@ -83,6 +97,14 @@ def _accumulate_step(slots: SimState, out: StepOutcome, n_acc, n_rej,
     return slots, util_end
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of (nested) NamedTuples."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    return type(first)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+
+
 def _steps(stream: ArrivalStream) -> list:
     """The stream's per-step views: one ``ArrivalStream`` of [A] leaves per
     step (one ``unbind`` per leaf instead of an index per leaf per step)."""
@@ -102,6 +124,31 @@ def _generator(gen_or_seed, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(gen_or_seed))
 
 
+def _is_batch(gen_or_seeds) -> bool:
+    """A sequence (or 1-d array) of seeds or generators is a batch; one
+    seed or generator is a single run."""
+    if isinstance(gen_or_seeds, (torch.Tensor, np.ndarray)):
+        return gen_or_seeds.ndim == 1
+    return isinstance(gen_or_seeds, (list, tuple))
+
+
+def split_seeds(seed: int, n_runs: int) -> list:
+    """``n_runs`` run seeds derived from ``seed``: the first ``n_runs``
+    64-bit words of ``numpy.random.SeedSequence(seed)``, each shifted right
+    by one bit to fit a ``torch.Generator`` seed. Deterministic, and a
+    prefix of the seeds for a larger ``n_runs``; it stands in for the JAX
+    package's ``jax.random.split``, whose keys it does not reproduce."""
+    words = np.random.SeedSequence(int(seed)).generate_state(n_runs,
+                                                             np.uint64)
+    return [int(w >> np.uint64(1)) for w in words]
+
+
+def _one_device(devices) -> None:
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            f"a batch over {len(devices)} devices " + _ROADMAP_MESH)
+
+
 def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
              arrival_source: ArrivalSource | None = None,
              record_decisions: bool = False, *, device="cuda"):
@@ -116,6 +163,13 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
     test drive the port with another package's draws. The run returns
     ``RunMetrics``, or ``(RunMetrics, accept [T, A])`` with
     ``record_decisions=True``.
+
+    A batch: ``gen_or_seed`` a sequence of R seeds or generators (or a 1-d
+    array of seeds), ``policy`` leaves 0-d (shared) or [R], ``stream`` a
+    stacked batch with a leading [R] (leaves [R, T, A], as the JAX package
+    stacks them), ``events`` per step with [R, S] leaves. The batch's
+    metrics have a leading [R] (``accept`` is [R, T, A]), and run r equals
+    the run alone on its seed bit for bit.
 
     The loop is blocked by ``cfg.agg_refresh_steps`` (= K): the aggregate
     curves are recomputed from the slot array once per block and, inside a
@@ -132,14 +186,27 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
     def run(gen_or_seed, policy: PolicyParams,
             stream: Optional[ArrivalStream] = None,
             events: Optional[Sequence[StepEvents]] = None):
-        gen = _generator(gen_or_seed, device)
+        batch = _is_batch(gen_or_seed)
+        if batch:
+            gen = [_generator(g, device) for g in gen_or_seed]
+            runs = len(gen)
+        else:
+            gen, runs = _generator(gen_or_seed, device), None
         policy = tree_to(policy, device)
-        stream = (source.stream(gen, cfg) if stream is None
-                  else tree_to(stream, device))
+        if stream is not None:
+            stream = tree_to(stream, device)
+            if batch:   # [R, T, ...] -> [T, R, ...]: a step's slice is [R, A]
+                stream = _tree_map(lambda x: x.movedim(0, 1).contiguous(),
+                                   stream)
+        elif batch:
+            stream = _tree_map(lambda *xs: torch.stack(xs, dim=1),
+                               *(source.stream(g, cfg) for g in gen))
+        else:
+            stream = source.stream(gen, cfg)
         if events is not None and len(events) != n_steps:
             raise ValueError(f"events has {len(events)} steps, the run "
                              f"{n_steps}")
-        cs = core.init()
+        cs = core.init(runs)
         util_trace, fail_trace, accepts = [], [], []
         for t, stream_t in enumerate(_steps(stream)):
             if t % k_refresh == 0:
@@ -152,22 +219,43 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
                 cs = cs._replace(slots=slots)
 
             # 4. arrivals, admitted against the maintained aggregate ------
-            valid = arange_a < stream_t.n_arrivals
+            valid = arange_a < stream_t.n_arrivals[..., None]
             cand = core.candidates(stream_t)
             cs, accept = core.decide_batch(policy, cs, out.util, cand,
                                            stream_t, valid)
-            n_acc = torch.sum(accept.to(F32))
-            n_rej = torch.sum(valid.to(F32)) - n_acc
+            n_acc = torch.sum(accept.to(F32), dim=-1)
+            n_rej = torch.sum(valid.to(F32), dim=-1) - n_acc
             slots, util_end = _accumulate_step(cs.slots, out, n_acc, n_rej,
                                                cfg.dt)
             cs = cs._replace(slots=slots)
             util_trace.append(util_end)
             fail_trace.append(out.failed)
             accepts.append(accept)
-        metrics = _run_metrics(cfg, cs.slots, torch.stack(util_trace),
-                               torch.stack(fail_trace))
+        metrics = _run_metrics(cfg, cs.slots, torch.stack(util_trace, dim=-1),
+                               torch.stack(fail_trace, dim=-1))
         if record_decisions:
-            return metrics, torch.stack(accepts)
+            return metrics, torch.stack(accepts, dim=-2)
         return metrics
 
     return run
+
+
+def run_keyed_batch(run_fn, seeds, policy: PolicyParams, *,
+                    streams: Optional[ArrivalStream] = None,
+                    devices=None) -> RunMetrics:
+    """Simulate an explicit batch of R run seeds (or generators) with
+    ``run_fn`` (a ``make_run`` run) in one batched loop; returns
+    ``RunMetrics`` with a leading [R]. ``policy`` is shared (0-d leaves) or
+    one for each run ([R] leaves); ``streams`` (optional) is a stacked [R]
+    batch of ``ArrivalStream``s, one for each run. The port runs on one
+    card: ``devices`` naming more than one raises."""
+    _one_device(devices)
+    return run_fn(list(seeds), policy, stream=streams)
+
+
+def run_batch(run_fn, seed: int, policy: PolicyParams, n_runs: int, *,
+              devices=None) -> RunMetrics:
+    """A batch of ``n_runs`` independent runs whose seeds ``split_seeds``
+    derives from ``seed``; see ``run_keyed_batch``."""
+    return run_keyed_batch(run_fn, split_seeds(seed, n_runs), policy,
+                           devices=devices)

@@ -10,7 +10,11 @@ float32; GQA decode, float32 out, 3e-5 for either cache type), and repeat
 launches must be bitwise equal. Both moment-curve kernels run in both
 forms (packed rows, and the belief columns the simulator launches); the
 aggregate must give equal bits in 50 replays of a CUDA graph, and each
-moment-curve entry point must be one CUDA kernel a call. The decode kernel
+moment-curve entry point must be one CUDA kernel a call (counted from a
+CUDA graph of the call). The batched aggregate (R runs in one launch) must
+match its plain version, equal one-run launches bit for bit run by run,
+repeat in CUDA-graph replays and be one kernel a call; a batch of runs on
+the card must equal its runs alone. The decode kernel
 is also run at lengths
 around its key tile and split share, must refuse a misaligned view, and
 must be one CUDA kernel a call. The bf16 flash kernel is also run at sequence
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch.core import AZURE_PRIORS, SECOND, geometric_grid, make_policy
 from repro_torch.core.belief import GammaBelief
+from repro_torch.kernels._graph import kernels_of_one_call
 from repro_torch.kernels.moment_curves import kernel as K
 from repro_torch.kernels.moment_curves import ops
 from repro_torch.kernels.moment_curves import ref as R
@@ -45,15 +50,17 @@ def card():
     return torch.device("cuda")
 
 
-def _case(d, n, nd, device):
-    """Numpy-made beliefs of ``d`` slots and the kernels' grid, on
-    ``device``."""
-    rng = np.random.default_rng(d + n + nd)
+def _case(d, n, nd, device, runs=None):
+    """Numpy-made beliefs of ``d`` slots ([D] columns, or [R, D] for
+    ``runs`` runs) and the kernels' grid, on ``device``."""
+    shape = d if runs is None else (runs, d)
+    rng = np.random.default_rng(d + n + nd + 10_000 * (runs or 0))
     e = lambda base: torch.from_numpy(
-        (base * np.exp(rng.standard_normal(d))).astype(np.float32))
+        (base * np.exp(rng.standard_normal(shape))).astype(np.float32))
     bel = GammaBelief(e(0.31), e(0.58), e(0.49), e(0.45), e(0.26), e(0.055))
-    cores = torch.from_numpy((1.0 + rng.poisson(5.0, d)).astype(np.float32))
-    alive = torch.from_numpy(rng.random(d) < 0.6)
+    cores = torch.from_numpy(
+        (1.0 + rng.poisson(5.0, shape)).astype(np.float32))
+    alive = torch.from_numpy(rng.random(shape) < 0.6)
     bel = GammaBelief(*(x.to(device) for x in bel))
     return (bel, cores.to(device), alive.to(device),
             geometric_grid(6.0, 78_840.0, n, device=device))
@@ -155,6 +162,74 @@ def test_card_run_is_deterministic_and_conserves(card):
     assert float(m1.alive_end) == float(
         m1.arrivals_accepted - m1.slot_overflow - m1.n_departed)
     assert 0.0 < float(m1.utilization) <= 1.0
+
+
+@pytest.mark.parametrize("runs,d,n", [(1, 96, 12), (3, 8193, 48),
+                                      (24, 8192, 48), (24, 300, 12)])
+def test_batched_aggregate_matches_plain_and_one_run_launches(card, runs, d,
+                                                              n):
+    """The batched aggregate against its plain version (the moment-curve
+    tolerances), equal bit for bit run by run to one-run launches, and equal
+    in 20 replays of a CUDA graph of a call."""
+    bel, cores, alive, grid = _case(d, n, 24, card, runs)
+    t, idx, frac, nd = ops.curve_grid(grid, 24)
+    args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+    before = K.LAUNCHES["moment_curves_agg_belief"]
+    el, vl = K.moment_curves_agg_belief(*args)
+    assert K.LAUNCHES["moment_curves_agg_belief"] == before + 1
+    want_el, want_vl = R.moment_curves_agg_belief_ref(*args)
+    torch.testing.assert_close(el, want_el, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(vl, want_vl, rtol=2e-3, atol=1e-4)
+    for r in range(runs):
+        one = K.moment_curves_agg_belief(GammaBelief(*(x[r] for x in bel)),
+                                         cores[r], alive[r], t, idx, frac,
+                                         nd, AZURE_PRIORS)
+        assert torch.equal(one[0], el[r]) and torch.equal(one[1], vl[r])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.moment_curves_agg_belief(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = K.moment_curves_agg_belief(*args)
+    for _ in range(20):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], el) and torch.equal(got[1], vl)
+
+
+def test_batched_aggregate_is_one_kernel(card):
+    """R runs' aggregates are one launch of the aggregate kernel and
+    nothing else, through the ``ops`` entry point."""
+    bel, cores, alive, grid = _case(8192, 48, 24, card, runs=24)
+    kernels = _kernels_of_one_call(lambda: ops.aggregate_moment_curves_kernel(
+        bel, cores, alive, grid, AZURE_PRIORS, d_points=24))
+    assert len(kernels) == 1, kernels
+    assert "agg_kernel" in kernels[0] and "BeliefRow" in kernels[0], kernels
+
+
+def test_card_batch_equals_single_runs(card):
+    """A batch on the card: run r has the bits of the run alone, and the
+    batch launches one candidate kernel a step and one aggregate a refresh
+    (over all its runs)."""
+    cfg = make_config(capacity=500.0, arrival_rate=0.08,
+                      horizon_hours=30 * 24.0, dt=24.0, max_slots=96,
+                      max_arrivals=4, d_points=8, agg_refresh_steps=3)
+    grid = geometric_grid(24.0, 3 * 30 * 24.0, 12)
+    run = make_run(cfg, grid, SECOND, record_decisions=True, device=card)
+    seeds, rhos = [3, 1, 4, 1], [0.05, 0.01, 0.2, 0.3]
+    K.reset_launches()
+    metrics, accept = run(seeds, make_policy(SECOND, rho=rhos,
+                                             capacity=cfg.capacity))
+    assert K.LAUNCHES["moment_curves_belief"] == cfg.n_steps
+    assert K.LAUNCHES["moment_curves_agg_belief"] == cfg.n_steps // 3
+    for r, (seed, rho) in enumerate(zip(seeds, rhos)):
+        one, one_accept = run(seed, make_policy(SECOND, rho=rho,
+                                                capacity=cfg.capacity))
+        assert torch.equal(accept[r], one_accept)
+        for name in one._fields:
+            assert torch.equal(getattr(metrics, name)[r], getattr(one, name))
 
 
 def _randn(gen, shape, dtype, device):
@@ -304,28 +379,11 @@ def test_decode_refuses_misaligned_views(card):
 
 
 def _kernels_of_one_call(call):
-    """The CUDA kernels one ``call()`` launches. The profiler's schedule
-    runs the call once as a warm-up step, whose trace it discards, then once
-    traced. The traced step's own marker (``ProfilerStep*``) is an event on
-    the device too; a trace without it recorded nothing of the device, and
-    is taken again (at most three traces)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    call()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                call()
-                torch.cuda.synchronize()
-                prof.step()
-        device = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(x.startswith("ProfilerStep") for x in device):
-            return [x for x in device if not x.startswith("ProfilerStep")]
-    pytest.fail("torch.profiler recorded nothing of the device in 3 traces")
+    """The CUDA kernels one ``call()`` launches, counted from a CUDA graph
+    of the call (``repro_torch.kernels._graph``): each kernel node by its
+    function's name, any other node (a memset, a copy) as ``<type node>``."""
+    names, others = kernels_of_one_call(call)
+    return names + [f"<{kind} node>" for kind in others]
 
 
 def test_decode_call_is_one_kernel(card):

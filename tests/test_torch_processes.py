@@ -5,19 +5,27 @@ package at rtol 1e-6 on numpy-made inputs. The samplers draw from
 ``torch.Generator``s, whose bits differ from ``jax.random``'s, so they get
 distribution tests: the sample mean and variance of ``N`` draws against the
 analytic values, within ``Z`` standard errors (the variance's standard error
-from the fourth central moment).
+from the fourth central moment), and two-sample tests against the JAX
+package's own draws.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.stats import ks_2samp
 
 from repro.core import AZURE_PRIORS
 from repro.core import belief as RB
+from repro.core import processes as RP
+from repro.sim import draw_arrival_stream as r_draw_arrival_stream
+from repro.sim import make_config
 from repro_torch import bridge
 from repro_torch.core import belief as PB
 from repro_torch.core.processes import (DeploymentParams, sample_params,
                                         sample_step_events)
+from repro_torch.sim import draw_arrival_stream
+from torch_lockstep import port_config
 
 PRIORS = AZURE_PRIORS
 T_PRIORS = bridge.from_reference(PRIORS)
@@ -135,3 +143,55 @@ def test_dead_slots_draw_no_events():
     assert float(ev.core_deaths.abs().sum()) == 0.0
     assert float(ev.n_scaleouts.sum()) == 0.0
     assert float(ev.scaleout_cores.sum()) == 0.0
+
+
+KS_P = 1e-4     # a false alarm per comparison has probability 1e-4
+
+
+def _same_law(got, want, name):
+    """Two-sample Kolmogorov-Smirnov: the port's draws and the JAX
+    package's come from one distribution (p above KS_P)."""
+    got = np.asarray(got, np.float64).ravel()
+    want = np.asarray(want, np.float64).ravel()
+    p = ks_2samp(got, want).pvalue
+    assert p > KS_P, (name, p, got.mean(), want.mean())
+
+
+@pytest.mark.parametrize("part", ["params", "stream", "events"])
+def test_samplers_match_reference_in_distribution(part):
+    """The port's samplers against the JAX package's own, in law: deployment
+    parameters from the priors; the arrival stream (true parameters, initial
+    sizes, arrivals a step) at the ``quick`` preset's rates over 40,000
+    steps; and one step's events for N deployments drawn from the priors.
+    With the step equal on the same draws (``test_torch_sim.py``), this is
+    what makes the two packages' Monte-Carlo results one estimator."""
+    gen = torch.Generator().manual_seed(0)
+    if part == "params":
+        got = sample_params(gen, T_PRIORS, (N,))
+        want = RP.sample_params(jax.random.PRNGKey(0), PRIORS, (N,))
+        for name in got._fields:
+            _same_law(getattr(got, name).numpy(), getattr(want, name), name)
+    elif part == "stream":
+        cfg = make_config(capacity=5_000.0, arrival_rate=0.25,
+                          horizon_hours=40_000 * 12.0, dt=12.0, max_slots=64,
+                          max_arrivals=5)
+        got = draw_arrival_stream(gen, port_config(cfg))
+        want = r_draw_arrival_stream(jax.random.PRNGKey(1), cfg)
+        for name in ("c0", "n_arrivals"):
+            _same_law(getattr(got, name).numpy(), getattr(want, name), name)
+        for name in got.params._fields:
+            _same_law(getattr(got.params, name).numpy(),
+                      getattr(want.params, name), name)
+    else:
+        params = sample_params(gen, T_PRIORS, (N,))
+        cores = 1.0 + torch.poisson(torch.full((N,), 5.0), generator=gen)
+        alive = torch.ones(N, dtype=torch.bool)
+        got = sample_step_events(gen, params, cores, T_PRIORS, 6.0,
+                                 alive=alive)
+        want = RP.sample_step_events(
+            jax.random.PRNGKey(2),
+            RP.DeploymentParams(*(jnp.asarray(x.numpy()) for x in params)),
+            jnp.asarray(cores.numpy()), PRIORS, 6.0,
+            alive=jnp.asarray(alive.numpy()))
+        for name in got._fields:
+            _same_law(getattr(got, name).numpy(), getattr(want, name), name)

@@ -37,11 +37,11 @@ TIMERS = [
     ("    d_term<kAggLanes>(r, w, nd, j, f_s[my], ed_s[warp][half]);\n",
      "after", "    CLOCK(2)\n"),
     ("    raw = next_raw;\n  }\n", "after", "  CLOCK(3)\n"),
-    ("  grid_barrier(&g_barrier[slot], g);\n", "before",
+    ("  grid_barrier(&g_barrier[slot], ctas);\n", "before",
      "  CLOCK(4)\n  GTIME(9)\n"),
-    ("  grid_barrier(&g_barrier[slot], g);\n", "after",
+    ("  grid_barrier(&g_barrier[slot], ctas);\n", "after",
      "  CLOCK(5)\n  GTIME(10)\n"),
-    ("    if (lane == 0) out[k] = s;\n  }\n}", "after-final",
+    ("    if (lane == 0) out[o] = s;\n  }\n}", "after-final",
      "  __syncthreads();\n  CLOCK(6)\n  GTIME(11)\n"),
     ("int mc_empty(void* stream) {", "before",
      "int mc_stamps(void* host) {\n"

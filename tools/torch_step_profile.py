@@ -2,13 +2,16 @@
 """Where a simulator step's time goes on the card, for the PyTorch port.
 
 Runs the port's SECOND admission core at PAPER_FULL (the ``full`` preset's
-48-point grid, aggregate refresh every 12 steps) on one CUDA card, warms the
-slot table up for ``--warm`` steps, then profiles ``--steps`` more with
-``torch.profiler`` and prints one JSON object: host wall time per step, CUDA
-kernels launched per step, device busy time per step, the device's idle
-share, and the kernels taking the most device time.
+48-point grid, aggregate refresh every 12 steps) on one CUDA card, for one
+run or (``--runs R``) a batch of R runs stepped together as ``make_run``
+steps a batch (a leading run axis; each run's events from its own
+generator), warms the slot tables up for ``--warm`` steps, then profiles
+``--steps`` more with ``torch.profiler`` and prints one JSON object: host
+wall time per step, runs x steps/s, CUDA kernels launched per step, device
+busy time per step, the device's idle share, and the kernels taking the
+most device time.
 
-    python3 tools/torch_step_profile.py [--warm 2000] [--steps 48]
+    python3 tools/torch_step_profile.py [--warm 2000] [--steps 48] [--runs 24]
 """
 import argparse
 import collections
@@ -25,6 +28,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm", type=int, default=2000)
     ap.add_argument("--steps", type=int, default=48)
+    ap.add_argument("--runs", type=int, default=1,
+                    help="runs stepped together (1: a single run; seeds "
+                         "from split_seeds(2018, R) otherwise)")
     args = ap.parse_args()
 
     import torch
@@ -35,8 +41,9 @@ def main():
 
     from repro_torch.configs import PAPER_FULL
     from repro_torch.core import SECOND, geometric_grid, make_policy
-    from repro_torch.sim import draw_arrival_stream, make_admission_core
-    from repro_torch.sim.simulator import _accumulate_step, _steps
+    from repro_torch.sim import (draw_arrival_stream, make_admission_core,
+                                 split_seeds)
+    from repro_torch.sim.simulator import _accumulate_step, _steps, _tree_map
 
     cfg = PAPER_FULL._replace(agg_refresh_steps=12)
     if args.warm + args.steps > cfg.n_steps:
@@ -47,10 +54,17 @@ def main():
         device=dev)
     policy = make_policy(SECOND, rho=0.112, capacity=cfg.capacity,
                          device=dev)
-    gen = torch.Generator(device=dev).manual_seed(2018)
-    steps = _steps(draw_arrival_stream(gen, cfg))
+    if args.runs == 1:
+        runs, gen = None, torch.Generator(device=dev).manual_seed(2018)
+        steps = _steps(draw_arrival_stream(gen, cfg))
+    else:
+        runs = args.runs
+        gen = [torch.Generator(device=dev).manual_seed(s)
+               for s in split_seeds(2018, runs)]
+        steps = _steps(_tree_map(lambda *xs: torch.stack(xs, dim=1),
+                                 *(draw_arrival_stream(g, cfg) for g in gen)))
     arange_a = torch.arange(cfg.max_arrivals, device=dev)
-    state = [core.init()]
+    state = [core.init(runs)]
 
     def step(t):
         cs = state[0]
@@ -58,12 +72,13 @@ def main():
             cs = core.refresh_aggregates(cs)
         cs, out = core.apply_events(gen, cs)
         st = steps[t]
-        valid = arange_a < st.n_arrivals
+        valid = arange_a < st.n_arrivals[..., None]
         cs, accept = core.decide_batch(policy, cs, out.util,
                                        core.candidates(st), st, valid)
-        n_acc = torch.sum(accept.float())
-        slots, _ = _accumulate_step(cs.slots, out, n_acc,
-                                    torch.sum(valid.float()) - n_acc, cfg.dt)
+        n_acc = torch.sum(accept.float(), dim=-1)
+        slots, _ = _accumulate_step(
+            cs.slots, out, n_acc, torch.sum(valid.float(), dim=-1) - n_acc,
+            cfg.dt)
         state[0] = cs._replace(slots=slots)
 
     for t in range(args.warm):
@@ -94,9 +109,11 @@ def main():
     print(json.dumps({
         "card": card,
         "config": "PAPER_FULL, SECOND rho 0.112, agg_refresh_steps 12, N 48",
-        "warm_steps": args.warm, "steps": n,
-        "occupied_slots": int(state[0].slots.alive.sum()),
+        "runs": args.runs, "warm_steps": args.warm, "steps": n,
+        "occupied_slots_per_run": float(state[0].slots.alive.sum())
+        / args.runs,
         "wall_ms_per_step": 1e3 * wall / n,
+        "runs_x_steps_per_s": args.runs * n / wall,
         "cuda_kernels_per_step": len(kernels) / n,
         "device_busy_ms_per_step": (1e-3 * busy_us / n) if kernels else None,
         "device_idle_share": (1.0 - 1e-6 * busy_us / wall) if kernels
