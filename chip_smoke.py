@@ -24,7 +24,12 @@ time:
                run by run against one-run launches, one CUDA kernel a call
                (counted from a CUDA graph of it), its times at R = 24 and
                240 (D = 8,192, N = 48) beside the bound for R runs and
-               beside R one-run launches in one CUDA graph.
+               beside R one-run launches in one CUDA graph. Then the §6/§7
+               inputs: both belief-form kernels on beliefs after 50 pseudo
+               observations (mu_a >= 50), and the row kernel on the
+               unlabeled mode's 2 A and 2 x 24 A rows (both mixture
+               components in one launch) bit for bit against one launch a
+               component; the largest relative error of each case.
   4. main    — ``make_run`` at the paper's full scale (PAPER_FULL, the
                ``full`` preset's grid and refresh interval) for SECOND
                (rho 0.112) and ZEROTH (threshold 8,864), the paper's tuned
@@ -42,10 +47,27 @@ time:
                simulations and seconds, beside the JAX package's
                ``tuning/calibrate/*`` rows of BENCH_quick.json; every chosen
                theta feasible under the port's own measurement.
+  4d. modes  — SECOND with Def. 4's heuristic at PAPER_FULL in the GLOBAL,
+               §6 PSEUDO (50 observations) and §7 unlabeled (5 of each
+               type) modes, each a batch of 24 runs: one row-kernel launch a
+               step (both mixture components' rows in it) and one
+               aggregate a refresh; run 0 equal to its run alone bit for
+               bit; runs x steps/s, launches a step, utilization.
+  4e. figures — ``repro_torch.benchmarks`` ``fig1_priors`` and
+               ``fig2_pricing`` (with §8's fees) at the ``quick`` preset,
+               each row beside the paper's number (not a gate;
+               utilizations finite in (0, 1]). The marginal ablation, whose
+               rows with the heuristic are Fig. 1's, runs through its
+               module command (``python -m
+               repro_torch.benchmarks.ablation_marginal --scale quick``).
   5. lockstep — a card core and a CPU core on one arrival stream and the
                same per-step events: equal decisions (up to float32 ties)
                and equal final metrics; the refreshed aggregate's largest
-               relative gap, card against CPU.
+               relative gaps (E[L], V[L]), card against CPU. Again with 50
+               pseudo observations (Def. 4's heuristic), where every
+               refresh's gap must stay below a fixed limit and a decision
+               may differ only at a margin below it; the count of
+               decisions whose margin lies inside their refresh's gap.
   6. build   — the two attention kernels (flash attention, GQA decode):
                nvcc's register, spill, shared-memory and warning lines.
   7. attention kernels — each against its plain PyTorch version (flash:
@@ -114,6 +136,12 @@ AGG_REL_HOST_PACKED = 1.288e-3
 TOL_EL = dict(rtol=2e-4, atol=1e-5)     # tests/test_kernels.py of the JAX
 TOL_VL = dict(rtol=2e-3, atol=1e-4)     # package: its kernel tolerances
 TIE_MARGIN = 1e-4
+# phase 5 with 50 pseudo observations: every refresh's relative gap, card
+# against CPU, must stay below these fixed limits, and a decision that
+# differs must have its margin below the larger. Twice the largest gaps
+# that phase read, E[L] 9.699e-4 and V[L] 1.015e-2 (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md), rounded up
+PSEUDO_GAP_LIMIT = dict(el=2e-3, vl=2e-2)
 # attention kernels against their plain versions, by the dtype of the
 # inputs. float32 flash: the JAX package's 2e-5 (tests/test_kernels.py).
 # bf16 flash returns bf16: within one bf16 ulp (2^-7 of the value) of the
@@ -636,8 +664,201 @@ def table2_quick():
         log("  " + row)
 
 
-def lockstep():
-    """Phase 5: a card core against a CPU core, step by step."""
+def pseudo_case(d, k, seed, device, runs=None):
+    """``d`` arrivals (``runs`` x ``d`` for a batch) drawn from the priors
+    on ``device``, their beliefs after ``k`` pseudo observations of their
+    own processes and the request size (the §6 fold: mu_a >= k), their
+    sizes, and alive flags."""
+    import torch
+    from repro_torch.core import (AZURE_PRIORS, apply_pseudo_observations,
+                                  belief_from_prior, observe_initial_size,
+                                  sample_params, sample_pseudo_observations)
+
+    shape = (d,) if runs is None else (runs, d)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = sample_params(gen, AZURE_PRIORS, shape, device=device)
+    c0 = 1.0 + torch.poisson(params.sig, generator=gen)
+    obs = sample_pseudo_observations(gen, params, AZURE_PRIORS, k)
+    bel = apply_pseudo_observations(
+        belief_from_prior(AZURE_PRIORS, shape, device=device), obs,
+        AZURE_PRIORS)
+    alive = torch.rand(shape, generator=gen, device=device) < 0.6
+    return observe_initial_size(bel, c0), c0, alive
+
+
+def check_prior_inputs(records):
+    """Phase 3, the §6/§7 inputs: both belief-form kernels against their
+    plain versions on beliefs after 50 pseudo observations (the aggregate
+    over 8,192 slots, one run and 24; the row kernel over 8 and 192 rows,
+    PAPER_FULL's A and 24 A), and the row kernel on the unlabeled mode's
+    2 A and 2 x 24 A rows, both components in one launch, bit for bit the
+    two launches of one component each. Reports each case's largest
+    relative error (where the plain value exceeds the tolerance's atol)."""
+    import torch
+    from repro_torch.core import AZURE_PRIORS, geometric_grid
+    from repro_torch.core.belief import GammaBelief
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.kernels.moment_curves import ops
+    from repro_torch.kernels.moment_curves import ref as R
+
+    n, nd = 48, 24
+    t, idx, frac, _ = ops.curve_grid(
+        geometric_grid(6.0, 78_840.0, n, device=DEVICE), nd)
+    worst = {}
+
+    def hold(name, got, want):
+        rel = 0.0
+        for g, w, tol in zip(got, want, (TOL_EL, TOL_VL)):
+            torch.testing.assert_close(g, w, **tol)
+            big = w.abs() > tol["atol"]
+            rel = max(rel, float(((g - w).abs() / w.abs())[big].max()))
+        worst[name] = max(worst.get(name, 0.0), rel)
+
+    for runs in (None, 24):
+        bel, _, alive = pseudo_case(8192, 50, 50 + (runs or 1), DEVICE, runs)
+        cores = 1.0 + torch.poisson(torch.full(alive.shape, 5.0,
+                                               device=DEVICE))
+        args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+        hold("aggregate, 50 observations", K.moment_curves_agg_belief(*args),
+             R.moment_curves_agg_belief_ref(*args))
+    log(f"50 pseudo observations: mu_a {float(bel.mu_a.min()):.1f}-"
+        f"{float(bel.mu_a.max()):.1f}, sig_a up to "
+        f"{float(bel.sig_a.max()):.4g}")
+    for rows in (8, 192):
+        bel, c0, _ = pseudo_case(rows, 50, rows, DEVICE)
+        args = (bel, c0, t, idx, frac, nd, AZURE_PRIORS)
+        hold("rows, 50 observations", K.moment_curves_belief(*args),
+             R.moment_curves_belief_ref(*args))
+    for rows in (8, 192):
+        bel, c0, _ = pseudo_case(rows, 5, 1000 + rows, DEVICE)
+        alt, _, _ = pseudo_case(rows, 5, 2000 + rows, DEVICE)
+        both = GammaBelief(*(torch.cat([x, y]) for x, y in zip(bel, alt)))
+        args = (both, torch.cat([c0, c0]), t, idx, frac, nd, AZURE_PRIORS)
+        one = K.moment_curves_belief(*args)
+        hold("rows, unlabeled 2 A", one, R.moment_curves_belief_ref(*args))
+        two = [K.moment_curves_belief(b, c0, t, idx, frac, nd, AZURE_PRIORS)
+               for b in (bel, alt)]
+        for i in range(2):
+            if not torch.equal(one[i], torch.cat([two[0][i], two[1][i]])):
+                raise AssertionError(f"the unlabeled launch of {2 * rows} "
+                                     "rows differs from two launches")
+    log("the §6/§7 inputs: kernels match their plain versions; largest "
+        "relative error " + ", ".join(f"{k} {v:.3e}"
+                                      for k, v in worst.items())
+        + "; one launch of both components' rows equals two launches bit "
+        "for bit (16 and 384 rows)")
+    records["moment_curves_belief"]["prior_inputs_max_rel_err"] = {
+        k: v for k, v in worst.items() if k.startswith("rows")}
+    records["moment_curves_agg_belief"]["prior_inputs_max_rel_err"] = {
+        k: v for k, v in worst.items() if k.startswith("aggregate")}
+
+
+def modes_path(records):
+    """Phase 4d: SECOND with Def. 4's heuristic at PAPER_FULL in the global
+    prior mode (phase 4b's batch, with the heuristic: each mode at the same
+    policy), the §6 (50 pseudo observations) and the §7 unlabeled (5 of
+    each type) modes, each as one batch of 24 runs: one row-kernel launch a
+    step (both mixture components' rows in one), one aggregate launch a
+    refresh; run 0 equal to its run alone bit for bit."""
+    import math
+
+    import torch
+    from repro_torch.configs import PAPER_FULL, PAPER_TABLE2
+    from repro_torch.core import SECOND, geometric_grid, make_policy
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.sim import make_run, split_seeds
+
+    grid = geometric_grid(6.0, 3 * PAPER_FULL.horizon_hours, 48,
+                          device=DEVICE)
+    seeds = split_seeds(2018, 24)
+    out = {}
+    for mode, n_obs in (("global", 0), ("pseudo", 50), ("unlabeled", 5)):
+        cfg = PAPER_FULL._replace(agg_refresh_steps=12, prior_mode=mode,
+                                  n_pseudo_obs=n_obs)
+        run = make_run(cfg, grid, SECOND, device=DEVICE)
+        policy = make_policy(SECOND, rho=PAPER_TABLE2["second_rho"],
+                             capacity=cfg.capacity, marginal=True)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        m = run(seeds, policy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        want = dict.fromkeys(launches, 0)
+        want.update(moment_curves_belief=cfg.n_steps,
+                    moment_curves_agg_belief=cfg.n_steps
+                    // cfg.agg_refresh_steps)
+        if launches != want:
+            raise AssertionError(f"{mode}: launches {launches}, want {want}")
+        for field in m:
+            if not bool(torch.isfinite(field).all()):
+                raise AssertionError(f"{mode}: non-finite metrics")
+        util = m.utilization.cpu()
+        if not bool(((util > 0.0) & (util <= 1.0)).all()):
+            raise AssertionError(f"{mode}: utilizations {util}")
+        alone = run(seeds[0], policy)
+        for name in alone._fields:
+            if not torch.equal(getattr(m, name)[0], getattr(alone, name)):
+                raise AssertionError(f"{mode}: run 0's {name} differs from "
+                                     "its run alone")
+        rate = len(seeds) * cfg.n_steps / wall
+        if not math.isfinite(rate):
+            raise AssertionError(f"{mode}: no rate")
+        per_step = {k: v / cfg.n_steps for k, v in launches.items() if v}
+        log(f"PAPER_FULL second (marginal), {mode} prior, {n_obs} "
+            f"observations, a batch of {len(seeds)} runs: wall {wall:.2f} "
+            f"s, {rate:.1f} runs x steps/s; moment-curve launches a step "
+            f"{per_step}; utilization mean {float(util.mean()):.4f} (min "
+            f"{float(util.min()):.4f}, max {float(util.max()):.4f}), "
+            f"failure rate mean {float(m.failure_rate.mean()):.3e}; run 0 "
+            "equals its run alone bit for bit")
+        out[mode] = dict(runs_x_steps_per_s=rate, wall_s=wall,
+                         launches=launches,
+                         utilization=float(util.mean()))
+    for name in ("moment_curves_belief", "moment_curves_agg_belief"):
+        records[name]["launches_prior_modes"] = {
+            mode: o["launches"][name] for mode, o in out.items()}
+    return out
+
+
+def figures_quick():
+    """Phase 4e: Fig. 1 and Fig. 2 (with §8's fees) at the quick preset
+    through their drivers, each row beside the paper's number (not a gate):
+    finite utilizations in (0, 1]."""
+    import math
+
+    from repro_torch.benchmarks import fig1_priors, fig2_pricing
+
+    checked = []
+    t0 = time.perf_counter()
+    res = fig1_priors.results("quick", 0, DEVICE)
+    checked += list(res.values())
+    for row in fig1_priors.rows(res):
+        log("  " + row)
+    log(f"  (Fig. 1: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    res = fig2_pricing.results("quick", 0, DEVICE)
+    checked += list(res.values())
+    for row in fig2_pricing.rows(res, fig2_pricing.fees("quick", 0,
+                                                        DEVICE)):
+        log("  " + row)
+    log(f"  (Fig. 2: {time.perf_counter() - t0:.1f} s)")
+    for r in checked:
+        if not (math.isfinite(r["utilization"])
+                and 0.0 < r["utilization"] <= 1.0):
+            raise AssertionError(f"a figure's row: utilization "
+                                 f"{r['utilization']}")
+
+
+def lockstep(prior_mode="global", n_obs=0):
+    """Phase 5: a card core against a CPU core, step by step. In the
+    global prior mode a decision that differs must be a float32 tie
+    (margin below TIE_MARGIN); with pseudo observations the aggregate's gap
+    grows with the posterior shape (ROADMAP.md Queue C): every refresh's
+    gaps must stay below PSEUDO_GAP_LIMIT, and a decision that differs must
+    have its margin below the larger limit. Returns the largest E[L] and V[L] gaps and
+    the count of decisions whose margin lies inside their refresh's gap."""
     import torch
     from repro_torch.configs import PAPER_CPU
     from repro_torch.core import SECOND, geometric_grid, make_policy
@@ -646,27 +867,41 @@ def lockstep():
     from repro_torch.sim.simulator import (_accumulate_step, _run_metrics,
                                            _steps)
 
-    cfg = PAPER_CPU._replace(agg_refresh_steps=4)
+    cfg = PAPER_CPU._replace(agg_refresh_steps=4, prior_mode=prior_mode,
+                             n_pseudo_obs=n_obs)
     grid = geometric_grid(cfg.dt, 3 * cfg.horizon_hours, 24)
     devs = ("cpu", DEVICE)
     cores = {d: make_admission_core(cfg, grid, SECOND, device=d)
              for d in devs}
-    policy = make_policy(SECOND, rho=0.112, capacity=cfg.capacity)
+    policy = make_policy(SECOND, rho=0.112, capacity=cfg.capacity,
+                         marginal=n_obs > 0)
     gen = torch.Generator().manual_seed(5)
     stream = draw_arrival_stream(gen, cfg)
     steps = {d: _steps(tree_to(stream, d)) for d in devs}
+    rows = {d: _steps(cores[d].candidate_rows(tree_to(stream, d)))
+            for d in devs}
     pols = {d: tree_to(policy, d) for d in devs}
     cs = {d: cores[d].init() for d in devs}
     traces = {d: ([], []) for d in devs}
     arange = {d: torch.arange(cfg.max_arrivals, device=d) for d in devs}
-    ties, agg_rel = 0, 0.0
+    limit = TIE_MARGIN if n_obs == 0 else max(PSEUDO_GAP_LIMIT.values())
+    ties, inside, decisions = 0, 0, 0
+    largest = dict(el=0.0, vl=0.0)
     for t in range(cfg.n_steps):
         if t % cfg.agg_refresh_steps == 0:
             for d in devs:
                 cs[d] = cores[d].refresh_aggregates(cs[d])
-            want = cs["cpu"].agg_el
-            rel = (cs[DEVICE].agg_el.cpu() - want).abs() / want.abs()
-            agg_rel = max(agg_rel, float(torch.nan_to_num(rel).max()))
+            rel = lambda x, y: float(torch.nan_to_num(
+                (x.cpu() - y).abs() / y.abs()).max())
+            gaps = dict(el=rel(cs[DEVICE].agg_el, cs["cpu"].agg_el),
+                        vl=rel(cs[DEVICE].agg_vl, cs["cpu"].agg_vl))
+            largest = {k: max(v, gaps[k]) for k, v in largest.items()}
+            gap = max(gaps.values())
+            if n_obs and any(gaps[k] >= PSEUDO_GAP_LIMIT[k] for k in gaps):
+                raise AssertionError(
+                    f"step {t}: refreshed aggregate, card against CPU, "
+                    f"E[L] gap {gaps['el']:.3e}, V[L] gap {gaps['vl']:.3e}: "
+                    f"not below {PSEUDO_GAP_LIMIT}")
         ev = cores["cpu"].sample_events(gen, cs["cpu"].slots)
         acc, diag = {}, {}
         for d in devs:
@@ -676,7 +911,7 @@ def lockstep():
             valid = arange[d] < st.n_arrivals
             c, acc[d], diag[d] = cores[d].decide_batch_traced(
                 pols[d], cs[d]._replace(slots=slots), out.util,
-                cores[d].candidates(st), st, valid)
+                cores[d].candidates(rows[d][t]), st, valid)
             n_acc = torch.sum(acc[d].float())
             n_rej = torch.sum(valid.float()) - n_acc
             slots, util_end = _accumulate_step(c.slots, out, n_acc, n_rej,
@@ -685,13 +920,20 @@ def lockstep():
             traces[d][0].append(util_end)
             traces[d][1].append(out.failed)
         differ = acc["cpu"] != acc[DEVICE].cpu()
+        cpu_margin = ((diag["cpu"].score - diag["cpu"].threshold).abs()
+                      / diag["cpu"].threshold.abs())
+        st_valid = steps["cpu"][t]
+        valid_cpu = arange["cpu"] < st_valid.n_arrivals
+        decisions += int(valid_cpu.sum())
+        inside += int((valid_cpu & (cpu_margin < gap)).sum())
         if bool(differ.any()):
             margin = min(float(((dg.score.cpu() - dg.threshold.cpu()).abs()
                                 / dg.threshold.cpu().abs())[differ].min())
                          for dg in diag.values())
-            if margin >= TIE_MARGIN:
+            if margin >= limit:
                 raise AssertionError(
-                    f"step {t}: decisions differ at margin {margin:.3e}")
+                    f"step {t}: decisions differ at margin {margin:.3e} "
+                    f"(limit {limit:.3e})")
             # a float32 tie: carry on from the CPU core's state
             ties += 1
             cs[DEVICE] = tree_to(cs["cpu"], DEVICE)
@@ -703,12 +945,21 @@ def lockstep():
         torch.testing.assert_close(getattr(metrics[DEVICE], name).cpu(),
                                    getattr(metrics["cpu"], name),
                                    rtol=1e-5, atol=0.0)
+    where = ("" if n_obs == 0
+             else f", {prior_mode} prior, {n_obs} observations, marginal")
+    gate = ("" if n_obs == 0 else
+            f", every refresh's gaps below E[L] {PSEUDO_GAP_LIMIT['el']}, "
+            f"V[L] {PSEUDO_GAP_LIMIT['vl']}")
     log(f"lockstep at PAPER_CPU ({cfg.n_steps} steps, {cfg.max_slots} "
-        f"slots): decisions equal, {ties} float32 ties "
-        f"(margin < {TIE_MARGIN}); refreshed aggregate E[L], card vs CPU, "
-        f"largest relative difference {agg_rel:.3e} (rows packed on the "
-        f"host: {AGG_REL_HOST_PACKED:.3e}); utilization "
+        f"slots{where}): decisions equal, {ties} float32 ties (margin < "
+        f"{limit}){gate}; refreshed aggregate, card vs CPU, largest "
+        f"relative difference E[L] {largest['el']:.3e} (rows packed on "
+        f"the host: {AGG_REL_HOST_PACKED:.3e}), V[L] {largest['vl']:.3e}; "
+        f"{inside} of {decisions} decisions with a margin inside the gap "
+        f"of E[L] and V[L] at their refresh; utilization "
         f"{float(metrics[DEVICE].utilization):.4f} on both")
+    return dict(el_rel=largest["el"], vl_rel=largest["vl"], ties=ties,
+                inside=inside, decisions=decisions)
 
 
 def start_builds():
@@ -1487,6 +1738,7 @@ def main():
         records = check_kernels()
         check_agg_runs(records, records["moment_curves_agg_belief"][
             "launch_floor_ms"])
+        check_prior_inputs(records)
 
     with phase("4. main path at PAPER_FULL"):
         single = main_path(records)
@@ -1497,8 +1749,15 @@ def main():
     with phase("4c. Table 2 at the quick preset"):
         table2_quick()
 
+    with phase("4d. the prior modes at PAPER_FULL, batches of 24 runs"):
+        modes_path(records)
+
+    with phase("4e. Fig. 1 and Fig. 2 at quick"):
+        figures_quick()
+
     with phase("5. card against CPU, in lockstep"):
         lockstep()
+        lockstep("pseudo", 50)
 
     with phase("6. build the attention kernels"):
         for mod, future in list(builds.items())[1:]:

@@ -20,13 +20,15 @@ import torch
 from .core.belief import GammaBelief
 from .core.moments import MomentCurves
 from .core.policies import PolicyParams
-from .core.processes import DeploymentParams, PopulationPriors, StepEvents
+from .core.processes import (DeploymentParams, PopulationPriors,
+                             PseudoObservations, StepEvents)
 from .models.layers import KVCache
 from .sim.core import ArrivalStream, CoreState, SimState
 
 PORTED = {cls.__name__: cls for cls in (
     GammaBelief, DeploymentParams, ArrivalStream, SimState, CoreState,
-    StepEvents, PolicyParams, PopulationPriors, MomentCurves, KVCache)}
+    StepEvents, PolicyParams, PopulationPriors, MomentCurves, KVCache,
+    PseudoObservations)}
 
 
 def _is_namedtuple(x) -> bool:

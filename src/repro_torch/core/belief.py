@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .processes import F32, PopulationPriors
+from .processes import F32, PopulationPriors, PseudoObservations
 
 
 def _log_mu_pow(mu_a: torch.Tensor, mu_b: torch.Tensor, p: float):
@@ -83,3 +83,50 @@ def update_on_events(
 def observe_initial_size(bel: GammaBelief, c0: torch.Tensor) -> GammaBelief:
     """The arrival request C0 ~ 1 + Poisson(sig) is itself a size observation."""
     return bel._replace(sig_a=bel.sig_a + (c0 - 1), sig_b=bel.sig_b + 1.0)
+
+
+def apply_pseudo_observations(bel: GammaBelief, obs: PseudoObservations,
+                              priors: PopulationPriors) -> GammaBelief:
+    """Fold paper-§6 pseudo observations into the belief (a
+    deployment-specific prior)."""
+    mu_a = bel.mu_a + obs.n_lifetimes
+    mu_b = bel.mu_b + obs.sum_lifetimes
+    e_mu_nu = torch.exp(_log_mu_pow(mu_a, mu_b, priors.nu))
+    lam_a = bel.lam_a + obs.n_scaleouts
+    lam_b = bel.lam_b + e_mu_nu * obs.n_windows
+    sig_a = bel.sig_a + obs.sum_size_minus1
+    sig_b = bel.sig_b + obs.n_sizes
+    return GammaBelief(mu_a, mu_b, lam_a, lam_b, sig_a, sig_b)
+
+
+def pseudo_counts_from_observables(
+    *,
+    core_deaths: torch.Tensor,
+    exposure_core_hours: torch.Tensor,
+    n_scaleouts: torch.Tensor,
+    scaleout_cores: torch.Tensor,
+    window_hours: torch.Tensor,
+) -> PseudoObservations:
+    """Provider-side pseudo counts from a deployment's *observed* history.
+
+    Folded through ``apply_pseudo_observations`` they give the conjugate
+    posterior the provider would hold after watching that history: each
+    observed core death is one lifetime observation and the core-hour
+    exposure the Gamma rate increment; the observation window plays the §6
+    unit windows (``n_windows`` is hours here, used only as exposure); each
+    scale-out is one size observation, sizes minus one summing to
+    ``scaleout_cores - n_scaleouts``. Malformed inputs (real-trace columns)
+    are clipped at zero, so a bad row means "no information" rather than an
+    improper posterior.
+    """
+    deaths = torch.clamp(core_deaths, min=0.0)
+    n_so = torch.clamp(n_scaleouts, min=0.0)
+    return PseudoObservations(
+        n_lifetimes=deaths,
+        sum_lifetimes=torch.clamp(exposure_core_hours, min=0.0),
+        n_windows=torch.clamp(window_hours, min=0.0),
+        n_scaleouts=n_so,
+        n_sizes=n_so,
+        sum_size_minus1=torch.clamp(
+            torch.clamp(scaleout_cores, min=0.0) - n_so, min=0.0),
+    )

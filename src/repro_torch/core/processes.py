@@ -134,3 +134,50 @@ def sample_step_events(
     extra = rows(poisson, n_scaleouts * params.sig)
     scaleout_cores = n_scaleouts + extra
     return StepEvents(core_deaths, spont_death, n_scaleouts, scaleout_cores)
+
+
+def sample_initial_size(gen: torch.Generator,
+                        params: DeploymentParams) -> torch.Tensor:
+    """Initial core count C0 ~ 1 + Poisson(sig), float32."""
+    return 1.0 + torch.poisson(params.sig, generator=gen)
+
+
+class PseudoObservations(NamedTuple):
+    """k observations of each true scaling process (paper §6 "pseudo
+    observations")."""
+
+    n_lifetimes: torch.Tensor       # number of observed core lifetimes (== k)
+    sum_lifetimes: torch.Tensor     # total observed lifetime hours
+    n_windows: torch.Tensor         # unit-time windows observed for scale-outs (== k)
+    n_scaleouts: torch.Tensor       # scale-outs observed in those windows
+    n_sizes: torch.Tensor           # scale-out size observations
+    sum_size_minus1: torch.Tensor   # sum of (size - 1)
+
+
+def sample_pseudo_observations(gen: torch.Generator,
+                               params: DeploymentParams,
+                               priors: PopulationPriors,
+                               k: int) -> PseudoObservations:
+    """Draw k observations from each true process of each deployment: k
+    exponential core lifetimes, k unit-window Poisson scale-out counts and
+    k scale-out sizes, reduced to their sums. ``params`` fields are
+    [...]-shaped; outputs share that batch shape. k == 0 yields the
+    uninformative update.
+
+    The sums are drawn directly, which is equal in law to summing k draws
+    and takes O(1) memory a deployment instead of O(k): the lifetimes' sum
+    is Gamma(k)/mu, the counts' Poisson(k lam mu**nu), the sizes' minus one
+    Poisson(k sig).
+    """
+    shape = tuple(params.mu.shape)
+    device = params.mu.device
+    if k == 0:
+        z = torch.zeros(shape, dtype=F32, device=device)
+        return PseudoObservations(z, z, z, z, z, z)
+    kf = torch.full(shape, float(k), dtype=F32, device=device)
+    life = torch._standard_gamma(kf, generator=gen) / params.mu
+    counts = torch.poisson(k * scaleout_rate(params, priors), generator=gen)
+    sizes_m1 = torch.poisson(k * params.sig, generator=gen)
+    return PseudoObservations(
+        n_lifetimes=kf, sum_lifetimes=life, n_windows=kf,
+        n_scaleouts=counts, n_sizes=kf, sum_size_minus1=sizes_m1)

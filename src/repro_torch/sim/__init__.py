@@ -1,6 +1,8 @@
 """Monte-Carlo cluster simulation (paper §5), in PyTorch: the admission core,
 the single-cluster ``make_run`` loop over it (one run or a batch of runs),
-and the run metrics (BCa intervals, SLA accounting)."""
+and the run metrics (BCa intervals, SLA accounting). Arrivals' priors
+follow ``SimConfig.prior_mode``: GLOBAL, PSEUDO (§6) or the §7 type
+mixtures MIX_LABELED and MIX_UNLABELED."""
 from .core import (AGG_FUSED, AGG_KERNEL, AGG_REFERENCE, GLOBAL, MIX_LABELED,
                    MIX_UNLABELED, PSEUDO, AdmissionCore, ArrivalSource,
                    ArrivalStream, CoreState, PriorArrivalSource, SimConfig,

@@ -1,7 +1,8 @@
 """The admission core: one state + function layer under the simulator.
 
-PyTorch counterpart of ``repro.sim.core`` for one cluster, the GLOBAL prior
-mode, no mesh and no telemetry:
+PyTorch counterpart of ``repro.sim.core`` for one cluster, every prior mode
+(GLOBAL, §6 PSEUDO, §7 MIX_LABELED and MIX_UNLABELED), no mesh and no
+telemetry:
 
   * ``CoreState`` — the slot table with per-deployment conjugate beliefs
     (``SimState``) plus the incrementally-maintained cluster aggregate
@@ -16,7 +17,9 @@ mode, no mesh and no telemetry:
       - ``apply_step_events(slots, ev)``   deaths / scale-out grants /
                                            belief updates from given events
       - ``apply_events(gen, cs)``          the two above, composed
-      - ``candidates(stream_t)``           [A, N] candidate moment curves
+      - ``candidate_rows(stream)``         the rows the candidates' curves
+                                           read (a run's, once)
+      - ``candidates(rows_t)``             [A, N] candidate moment curves
       - ``decide_batch(policy, cs, …)``    sequential admission + slot
                                            placement + incremental fold
 
@@ -47,23 +50,27 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..core.belief import (GammaBelief, belief_from_prior,
-                           observe_initial_size, update_on_events)
+from ..core.belief import (GammaBelief, apply_pseudo_observations,
+                           belief_from_prior, observe_initial_size,
+                           update_on_events)
 from ..core.moments import (MomentCurves, aggregate_moment_curves,
                             moment_curves, moment_curves_fused)
 from ..core.policies import (ZEROTH, PolicyParams, admit_sequential,
                              admit_sequential_verbose)
+from ..core.pricing import mixture_moments
 from ..core.processes import (F32, DeploymentParams, PopulationPriors,
-                              StepEvents, sample_params, sample_step_events)
+                              StepEvents, sample_initial_size, sample_params,
+                              sample_pseudo_observations, sample_step_events)
 from ..device import resolve_device
 
 GLOBAL, PSEUDO, MIX_LABELED, MIX_UNLABELED = "global", "pseudo", "labeled", "unlabeled"
 AGG_FUSED, AGG_REFERENCE, AGG_KERNEL = "fused", "reference", "kernel"
 
-# where each option this slice leaves out will be ported
+# where each option the port leaves out will be ported
 _NOT_PORTED = "is not ported yet: ROADMAP.md, Queue A, {!r}"
-_ROADMAP_PRIORS = "Pseudo and mixture priors"
 _ROADMAP_TELEMETRY = "Telemetry, mesh and fleet"
+# the two components' weights of an unlabeled (§7) arrival
+_MIX_WEIGHTS = (0.5, 0.5)
 
 
 class SimConfig(NamedTuple):
@@ -75,7 +82,7 @@ class SimConfig(NamedTuple):
     dt: float = 6.0                  # hours per step
     max_slots: int = 1024
     max_arrivals: int = 4            # cap per step (Poisson tail clipped)
-    prior_mode: str = GLOBAL         # only GLOBAL is ported
+    prior_mode: str = GLOBAL         # GLOBAL | PSEUDO | MIX_LABELED | MIX_UNLABELED
     n_pseudo_obs: int = 0            # paper §6: 0/1/5/50
     d_points: int = 24               # D-term checkpoint count
     use_kernel: bool = True          # per-candidate curves through the
@@ -140,10 +147,6 @@ def _validate_config(cfg: SimConfig) -> SimConfig:
 
 
 def _check_ported(cfg: SimConfig):
-    if cfg.prior_mode != GLOBAL:
-        raise NotImplementedError(
-            f"prior_mode={cfg.prior_mode!r} "
-            + _NOT_PORTED.format(_ROADMAP_PRIORS))
     if cfg.telemetry:
         raise NotImplementedError(
             "telemetry=True " + _NOT_PORTED.format(_ROADMAP_TELEMETRY))
@@ -184,8 +187,17 @@ class PriorArrivalSource(ArrivalSource):
 
 
 def draw_arrival_stream(gen: torch.Generator, cfg: SimConfig) -> ArrivalStream:
-    """Pre-draw every arrival's true params, request size and prior belief
-    (GLOBAL prior mode), on the generator's device."""
+    """Pre-draw every arrival's true params, request size and prior belief,
+    on the generator's device.
+
+    GLOBAL: the population prior. PSEUDO (§6): the prior with
+    ``n_pseudo_obs`` pseudo observations of the arrival's own processes.
+    MIX_LABELED / MIX_UNLABELED (§7): the user has two types, the submitted
+    deployment (``params``) and an independent draw; the provider holds
+    ``n_pseudo_obs`` observations of each, ``bel`` and ``bel_alt``.
+    ``bel`` then sees the request size C0; ``bel_alt`` does not, as in the
+    JAX package (outside the mixture modes it is ``bel`` before C0). The
+    GLOBAL draws come first, in the same order in every mode."""
     _check_ported(cfg)
     device = gen.device
     t_steps, a_max = cfg.n_steps, cfg.max_arrivals
@@ -195,11 +207,65 @@ def draw_arrival_stream(gen: torch.Generator, cfg: SimConfig) -> ArrivalStream:
     n_arr = torch.clamp(torch.poisson(rate, generator=gen),
                         max=a_max).to(torch.int32)
     params = sample_params(gen, cfg.priors, shape, device=device)
-    c0 = 1.0 + torch.poisson(params.sig, generator=gen)
-    bel = observe_initial_size(belief_from_prior(cfg.priors, shape,
-                                                 device=device), c0)
-    return ArrivalStream(params=params, c0=c0, bel=bel, bel_alt=bel,
+    c0 = sample_initial_size(gen, params)
+    prior = belief_from_prior(cfg.priors, shape, device=device)
+    observed = lambda p: apply_pseudo_observations(
+        prior, sample_pseudo_observations(gen, p, cfg.priors,
+                                          cfg.n_pseudo_obs), cfg.priors)
+    if cfg.prior_mode == GLOBAL:
+        bel = bel_alt = prior
+    elif cfg.prior_mode == PSEUDO:
+        bel = bel_alt = observed(params)
+    else:
+        alt = sample_params(gen, cfg.priors, shape, device=device)
+        bel = observed(params)
+        bel_alt = observed(alt)
+    bel = observe_initial_size(bel, c0)
+    return ArrivalStream(params=params, c0=c0, bel=bel, bel_alt=bel_alt,
                          n_arrivals=n_arr)
+
+
+class CandidateRows(NamedTuple):
+    """What the candidates' curves read: the arrivals' beliefs and request
+    sizes, leaves [..., A]. In the §7 unlabeled mode each leaf holds both
+    type components side by side, [..., 2, A] (``bel``, then ``bel_alt``),
+    so that one call of the row evaluator takes both."""
+
+    bel: GammaBelief
+    c0: torch.Tensor
+
+
+def candidate_rows(cfg: SimConfig, stream: ArrivalStream) -> CandidateRows:
+    """The candidates' rows of a stream of any leading shape: [T, (R,) A]
+    leaves for a run's stream (built once a run; a step's rows are then
+    views), [(R,) A] for one step's. Outside the unlabeled mode these are
+    the stream's own leaves."""
+    if cfg.prior_mode != MIX_UNLABELED:
+        return CandidateRows(bel=stream.bel, c0=stream.c0)
+    pair = lambda x, y: torch.stack([x, y], dim=-2)
+    return CandidateRows(bel=GammaBelief(*map(pair, stream.bel,
+                                              stream.bel_alt)),
+                         c0=pair(stream.c0, stream.c0))
+
+
+def row_curves(cfg: SimConfig, grid: torch.Tensor, rows: CandidateRows,
+               curves_fn) -> MomentCurves:
+    """Every row's curves from one call of ``curves_fn``: [..., N] for
+    leaves [...]. Rows are independent, so a row's bits do not depend on
+    the rows beside it."""
+    shape = tuple(rows.c0.shape)
+    flat = lambda x: x.reshape(-1)
+    curves = curves_fn(GammaBelief(*map(flat, rows.bel)), flat(rows.c0),
+                       grid, cfg.priors, d_points=cfg.d_points)
+    return MomentCurves(*(x.reshape(*shape, -1) for x in curves))
+
+
+def type_curves(cfg: SimConfig, grid: torch.Tensor, rows: CandidateRows,
+                curves_fn) -> MomentCurves:
+    """The unlabeled mode's per-type curves of ``candidate_rows``' rows:
+    [2, ..., A, N], type first, from one call for both types."""
+    return MomentCurves(*(x.movedim(-3, 0) for x in
+                          row_curves(cfg, grid, rows, curves_fn)))
 
 
 class SimState(NamedTuple):
@@ -349,21 +415,25 @@ def _make_curves_fn(cfg: SimConfig):
 
 def _make_candidates_fn(cfg: SimConfig, grid: torch.Tensor,
                         needs_moments: bool, n_grid: int, curves_fn):
-    """[A, N] candidate curves for one step's pre-drawn arrivals ([R, A, N]
+    """[A, N] candidate curves for one step's ``CandidateRows`` ([R, A, N]
     for R runs': their R A rows in one call), zeros when the policy ignores
-    them."""
+    them. In the §7 unlabeled mode a candidate is the mixture of its two
+    type components, whose 2 R A rows go through one call."""
+    mixture = cfg.prior_mode == MIX_UNLABELED
+    weights = torch.tensor(_MIX_WEIGHTS, dtype=F32, device=grid.device)
 
-    def candidates(stream_t: ArrivalStream) -> MomentCurves:
-        lead = tuple(stream_t.c0.shape)
+    def candidates(rows_t: CandidateRows) -> MomentCurves:
         if not needs_moments:
-            zeros = torch.zeros((*lead, n_grid), dtype=F32,
-                                device=stream_t.c0.device)
+            shape = rows_t.c0.shape
+            if mixture:     # [..., 2, A] rows: [..., A] candidates
+                shape = (*shape[:-2], shape[-1])
+            zeros = torch.zeros((*shape, n_grid), dtype=F32,
+                                device=rows_t.c0.device)
             return MomentCurves(EL=zeros, VL=zeros)
-        rows = lambda x: x.reshape(-1)
-        curves = curves_fn(GammaBelief(*map(rows, stream_t.bel)),
-                           rows(stream_t.c0), grid, cfg.priors,
-                           d_points=cfg.d_points)
-        return MomentCurves(*(x.reshape(*lead, n_grid) for x in curves))
+        if mixture:
+            return mixture_moments(weights, type_curves(cfg, grid, rows_t,
+                                                        curves_fn))
+        return row_curves(cfg, grid, rows_t, curves_fn)
 
     return candidates
 
@@ -427,7 +497,8 @@ class AdmissionCore(NamedTuple):
     sample_events: Callable[..., StepEvents]
     apply_step_events: Callable[..., tuple]
     apply_events: Callable[..., tuple]
-    candidates: Callable[[ArrivalStream], MomentCurves]
+    candidate_rows: Callable[[ArrivalStream], CandidateRows]
+    candidates: Callable[[CandidateRows], MomentCurves]
     decide_batch: Callable[..., tuple]
     decide_batch_traced: Callable[..., tuple]
 
@@ -530,5 +601,6 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         needs_moments=needs_moments, n_grid=n_grid, device=device, init=init,
         refresh_aggregates=refresh_aggregates, sample_events=sample_events,
         apply_step_events=apply_step_events, apply_events=apply_events,
+        candidate_rows=lambda stream: candidate_rows(cfg, stream),
         candidates=candidates_fn, decide_batch=decide_batch,
         decide_batch_traced=decide_batch_traced)

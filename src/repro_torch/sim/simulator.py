@@ -208,6 +208,7 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
                              f"{n_steps}")
         cs = core.init(runs)
         util_trace, fail_trace, accepts = [], [], []
+        rows = _steps(core.candidate_rows(stream))
         for t, stream_t in enumerate(_steps(stream)):
             if t % k_refresh == 0:
                 cs = core.refresh_aggregates(cs)
@@ -220,7 +221,7 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
 
             # 4. arrivals, admitted against the maintained aggregate ------
             valid = arange_a < stream_t.n_arrivals[..., None]
-            cand = core.candidates(stream_t)
+            cand = core.candidates(rows[t])
             cs, accept = core.decide_batch(policy, cs, out.util, cand,
                                            stream_t, valid)
             n_acc = torch.sum(accept.to(F32), dim=-1)

@@ -8,7 +8,7 @@ aggregate failure rate is nondecreasing in theta up to a fixed allowance
 one grid step of the serial ``tune_threshold`` bisection. Here the port's
 ``eval_theta_grid``, ``calibrate`` and ``tune_threshold`` run over a port
 ``make_run`` fed the reference's own draws for each (key, theta) they ask
-for (``test_torch_calibrate_parity.InjectedRuns``), and are held to the same
+for (``torch_lockstep.InjectedRuns``), and are held to the same
 criteria, unchanged. (``test_torch_calibrate.py`` states the same
 properties on the port's own draws, where a single run's divergence is
 judged against the rate's own interval.)
@@ -19,7 +19,8 @@ import pytest
 from repro_torch.core import tune_threshold
 from repro_torch.tuning import (calibrate, eval_theta_grid, from_param,
                                 theta_space, to_param)
-from test_torch_calibrate_parity import IDS, KINDS, LADDERS, InjectedRuns
+from test_torch_calibrate_parity import IDS, KINDS, LADDERS
+from torch_lockstep import InjectedRuns
 
 #: tests/test_tuning.py's allowance: one run-level fluke
 MONOTONE_TOL = 1.5e-3
@@ -27,7 +28,8 @@ MONOTONE_TOL = 1.5e-3
 
 @pytest.fixture(scope="module")
 def injected(sim_cache):
-    return {kind: InjectedRuns(sim_cache, kind) for kind in KINDS}
+    return {kind: InjectedRuns(sim_cache.cfg, sim_cache.grid, sim_cache.keys,
+                               kind) for kind in KINDS}
 
 
 def _agg_fail(sim_cache, run, kind, thetas):

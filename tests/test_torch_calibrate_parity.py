@@ -13,11 +13,9 @@ import pytest
 
 from repro.tuning import calibrate as r_calibrate
 from repro.tuning import eval_theta_grid as r_eval_theta_grid
-from repro_torch import bridge
 from repro_torch.core import FIRST, SECOND, ZEROTH
-from repro_torch.sim import make_run
 from repro_torch.tuning import calibrate, eval_theta_grid
-from torch_lockstep import port_config, reference_draws
+from torch_lockstep import InjectedRuns
 
 KINDS = (ZEROTH, FIRST, SECOND)
 IDS = ["zeroth", "first", "second"]
@@ -30,53 +28,10 @@ LADDERS = {
 RTOL_METRICS = 1e-5
 
 
-class InjectedRuns:
-    """A port ``make_run`` run fed the reference's draws: run seeds are
-    indices into the ``SimCache`` keys, and each (key, theta) asked for is
-    recorded once by ``reference_draws``."""
-
-    def __init__(self, sim_cache, kind):
-        self.cfg, self.kind = sim_cache.cfg, kind
-        self.grid, self.keys = sim_cache.grid, np.asarray(sim_cache.keys)
-        self.run = make_run(port_config(sim_cache.cfg), np.asarray(self.grid),
-                            kind, device="cpu")
-        self.draws = {}
-
-    def __call__(self, seeds, policy, stream=None):
-        assert stream is None
-        wanted = list(zip(seeds, policy.threshold.numpy().tolist()))
-        new = sorted(set(wanted) - set(self.draws))
-        if new:
-            idx = [i for i, _ in new]
-            ref_stream, events = reference_draws(
-                self.cfg, self.grid, self.kind, self.keys[idx],
-                [th for _, th in new])
-            for b, run in enumerate(new):
-                self.draws[run] = (
-                    type(ref_stream)(*(_row(x, b) for x in ref_stream)),
-                    [type(ev)(*(x[b] for x in ev)) for ev in events])
-        picked = [self.draws[run] for run in wanted]
-        stream = _stack([s for s, _ in picked])
-        events = [_stack(step) for step in zip(*(e for _, e in picked))]
-        return self.run(list(seeds), policy,
-                        stream=bridge.from_reference(stream),
-                        events=[bridge.from_reference(ev) for ev in events])
-
-
-def _row(x, b):
-    return type(x)(*(y[b] for y in x)) if isinstance(x, tuple) else x[b]
-
-
-def _stack(trees):
-    first = trees[0]
-    if isinstance(first, tuple):
-        return type(first)(*(_stack(xs) for xs in zip(*trees)))
-    return np.stack(trees)
-
-
 @pytest.fixture(scope="module")
 def injected(sim_cache):
-    return {kind: InjectedRuns(sim_cache, kind) for kind in KINDS}
+    return {kind: InjectedRuns(sim_cache.cfg, sim_cache.grid, sim_cache.keys,
+                               kind) for kind in KINDS}
 
 
 @pytest.mark.parametrize("kind", KINDS, ids=IDS)

@@ -14,7 +14,9 @@ moment-curve entry point must be one CUDA kernel a call (counted from a
 CUDA graph of the call). The batched aggregate (R runs in one launch) must
 match its plain version, equal one-run launches bit for bit run by run,
 repeat in CUDA-graph replays and be one kernel a call; a batch of runs on
-the card must equal its runs alone. The decode kernel
+the card must equal its runs alone, also in the §6/§7 prior modes, where
+the unlabeled mode's two mixture components go through one row launch
+with the bits of two. The decode kernel
 is also run at lengths
 around its key tile and split share, must refuse a misaligned view, and
 must be one CUDA kernel a call. The bf16 flash kernel is also run at sequence
@@ -230,6 +232,68 @@ def test_card_batch_equals_single_runs(card):
         assert torch.equal(accept[r], one_accept)
         for name in one._fields:
             assert torch.equal(getattr(metrics, name)[r], getattr(one, name))
+
+
+@pytest.mark.parametrize("prior_mode, n_obs", [("pseudo", 50),
+                                                ("labeled", 5),
+                                                ("unlabeled", 5)])
+def test_card_batch_equals_single_runs_in_prior_modes(card, prior_mode,
+                                                      n_obs):
+    """The §6/§7 modes on the card, with Def. 4's heuristic: run r of a
+    batch has the bits of the run alone, and the unlabeled mode launches
+    one candidate kernel a step for both mixture components."""
+    cfg = make_config(capacity=500.0, arrival_rate=0.08,
+                      horizon_hours=30 * 24.0, dt=24.0, max_slots=96,
+                      max_arrivals=4, d_points=8, agg_refresh_steps=3,
+                      prior_mode=prior_mode, n_pseudo_obs=n_obs)
+    grid = geometric_grid(24.0, 3 * 30 * 24.0, 12)
+    run = make_run(cfg, grid, SECOND, record_decisions=True, device=card)
+    seeds, rhos = [3, 1, 4], [0.05, 0.01, 0.2]
+    K.reset_launches()
+    metrics, accept = run(seeds, make_policy(SECOND, rho=rhos,
+                                             capacity=cfg.capacity,
+                                             marginal=True))
+    assert K.LAUNCHES["moment_curves_belief"] == cfg.n_steps
+    assert K.LAUNCHES["moment_curves_agg_belief"] == cfg.n_steps // 3
+    for r, (seed, rho) in enumerate(zip(seeds, rhos)):
+        one, one_accept = run(seed, make_policy(SECOND, rho=rho,
+                                                capacity=cfg.capacity,
+                                                marginal=True))
+        assert torch.equal(accept[r], one_accept)
+        for name in one._fields:
+            assert torch.equal(getattr(metrics, name)[r], getattr(one, name))
+
+
+def test_unlabeled_rows_in_one_launch_equal_two(card):
+    """Both mixture components' rows in one row-kernel launch give the bits
+    of one launch a component, and match the plain version on beliefs after
+    50 pseudo observations."""
+    from repro_torch.core import (apply_pseudo_observations,
+                                  belief_from_prior, sample_params,
+                                  sample_pseudo_observations)
+
+    gen = torch.Generator(device=card).manual_seed(17)
+    t, idx, frac, nd = ops.curve_grid(geometric_grid(6.0, 78_840.0, 48,
+                                                     device=card), 24)
+    bels = []
+    for k in (50, 5):
+        params = sample_params(gen, AZURE_PRIORS, (192,), device=card)
+        bels.append(apply_pseudo_observations(
+            belief_from_prior(AZURE_PRIORS, (192,), device=card),
+            sample_pseudo_observations(gen, params, AZURE_PRIORS, k),
+            AZURE_PRIORS))
+    cores = 1.0 + torch.poisson(torch.full((192,), 4.0, device=card),
+                                generator=gen)
+    both = GammaBelief(*(torch.cat(xs) for xs in zip(*bels)))
+    args = (t, idx, frac, nd, AZURE_PRIORS)
+    one = K.moment_curves_belief(both, torch.cat([cores, cores]), *args)
+    two = [K.moment_curves_belief(b, cores, *args) for b in bels]
+    for i in range(2):
+        assert torch.equal(one[i], torch.cat([two[0][i], two[1][i]]))
+    el, vl = R.moment_curves_belief_ref(both, torch.cat([cores, cores]),
+                                        *args)
+    torch.testing.assert_close(one[0], el, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(one[1], vl, rtol=2e-3, atol=1e-4)
 
 
 def _randn(gen, shape, dtype, device):

@@ -161,8 +161,9 @@ def test_core_state_matches_reference_each_step(ref, lane):
             for x in stream))
         valid = torch.arange(cfg.max_arrivals) < stream_t.n_arrivals
         cs, accept = core.decide_batch(policy, cs, out.util,
-                                       core.candidates(stream_t), stream_t,
-                                       valid)
+                                       core.candidates(
+                                           core.candidate_rows(stream_t)),
+                                       stream_t, valid)
         np.testing.assert_array_equal(accept.numpy(), ref["accept"][t])
         want = ref["states"][t]
         np.testing.assert_array_equal(cs.slots.alive.numpy(), want.alive)
@@ -206,7 +207,6 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(prior_mode="pseudo", n_pseudo_obs=1), "Pseudo and mixture priors"),
     (dict(telemetry=True), "Telemetry, mesh and fleet"),
 ])
 def test_unported_options_raise(change, match):

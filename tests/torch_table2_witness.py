@@ -1,9 +1,15 @@
-"""Table 2's calibration, the JAX package's against the port's on its draws.
+"""Table 2's calibration, the JAX package's against the port's on its draws
+(and Fig. 1's and Fig. 2's).
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/torch_table2_witness.py \
         --scale quick [--kinds zeroth first second] [--seed 0] [--json PATH]
+    ... tests/torch_table2_witness.py --scale tiny --figure fig1   # or fig2
 
-For each policy kind, at a ``benchmarks/common.py`` preset:
+For each policy kind (``--figure table2``, the default), or each row of the
+figure's JAX driver (``fig1``: FIRST and SECOND with Def. 4's marginal
+heuristic at the driver's pseudo-observation levels, keys from ``seed +
+observations``; ``fig2``: SECOND with the heuristic, labeled and unlabeled
+types, 5 observations each), at a ``benchmarks/common.py`` preset:
 
 1. the JAX package's ``calibrate``, as its ``tune_and_eval`` calls it (the
    preset's keys ``split(PRNGKey(seed), n_runs)``, grid, tau and stages);
@@ -69,8 +75,10 @@ class InjectedRuns:
         assert stream is None
         seeds = list(seeds)
         thetas = policy.threshold.numpy().tolist()
+        marginal = bool((policy.marginal_eps > 0).any())
         ref_stream, steps = reference_steps(self.cfg, self.grid, self.kind,
-                                            self.keys[seeds], thetas)
+                                            self.keys[seeds], thetas,
+                                            marginal)
         return self.run(seeds, policy,
                         stream=bridge.from_reference(ref_stream),
                         events=_Steps(steps, self.cfg.n_steps))
@@ -106,27 +114,46 @@ def _agree(ref, port) -> dict:
         / max(abs(ref["utilization"]), 1e-30))
 
 
+def cases(figure, scale_name, seed, kinds):
+    """(row name, kind, prior mode, observations, marginal, seed) of each
+    row the figure's JAX driver runs."""
+    if figure == "table2":
+        return [(name, KINDS[name], "global", 0, False, seed)
+                for name in kinds]
+    if figure == "fig1":
+        levels = (0, 1, 5) if scale_name == "tiny" else (0, 1, 5, 50)
+        return [(f"{name}_obs{n}", KINDS[name],
+                 "pseudo" if n else "global", n, True, seed + n)
+                for name in ("first", "second") for n in levels]
+    return [(mode, SECOND, mode, 5, True, seed)
+            for mode in ("labeled", "unlabeled")]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", default="quick", choices=sorted(RC.SCALES))
+    ap.add_argument("--figure", default="table2",
+                    choices=("table2", "fig1", "fig2"))
     ap.add_argument("--kinds", nargs="+", default=list(KINDS),
                     choices=list(KINDS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     scale = RC.SCALES[args.scale]
-    cfg = RC.sim_config(scale)
-    grid = RC.grid_for(scale, cfg)
-    keys = jax.random.split(jax.random.PRNGKey(args.seed), scale.n_runs)
-    print(f"{args.scale}: {cfg.n_steps} steps, {cfg.max_slots} slots, "
-          f"refresh every {cfg.agg_refresh_steps}, {scale.n_runs} runs, "
-          f"tau {scale.tau:g}, seed {args.seed}", flush=True)
     out = {}
-    for name in args.kinds:
-        kind = KINDS[name]
+    for name, kind, mode, n_obs, marginal, seed in cases(
+            args.figure, args.scale, args.seed, args.kinds):
+        cfg = RC.sim_config(scale, prior_mode=mode, n_pseudo_obs=n_obs)
+        grid = RC.grid_for(scale, cfg)
+        keys = jax.random.split(jax.random.PRNGKey(seed), scale.n_runs)
+        print(f"{args.scale} {name}: {cfg.n_steps} steps, {cfg.max_slots} "
+              f"slots, refresh every {cfg.agg_refresh_steps}, "
+              f"{scale.n_runs} runs, tau {scale.tau:g}, seed {seed}, prior "
+              f"{mode} ({n_obs} observations), marginal {marginal}",
+              flush=True)
         kw = dict(capacity=cfg.capacity, tau=scale.tau,
                   n_grid=scale.n_thresholds + (2 if kind == SECOND else 0),
-                  max_stages=2)
+                  max_stages=2, marginal=marginal)
         t0 = time.perf_counter()
         ref = _summary(r_calibrate(r_make_run(cfg, grid, kind), kind, keys,
                                    **kw), time.perf_counter() - t0)
@@ -143,8 +170,8 @@ def main(argv=None):
         out[name] = dict(reference=ref, port=port, agree=agree)
     if args.json:
         with open(args.json, "w") as f:
-            json.dump(dict(scale=args.scale, seed=args.seed, kinds=out), f,
-                      indent=1)
+            json.dump(dict(scale=args.scale, seed=args.seed,
+                           figure=args.figure, rows=out), f, indent=1)
 
 
 if __name__ == "__main__":

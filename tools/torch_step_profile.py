@@ -9,9 +9,12 @@ generator), warms the slot tables up for ``--warm`` steps, then profiles
 ``--steps`` more with ``torch.profiler`` and prints one JSON object: host
 wall time per step, runs x steps/s, CUDA kernels launched per step, device
 busy time per step, the device's idle share, and the kernels taking the
-most device time.
+most device time. ``--prior-mode pseudo|labeled|unlabeled`` with
+``--n-pseudo-obs K`` profiles the §6/§7 prior modes, ``--marginal`` adds
+Def. 4's heuristic to the policy (as the figures' drivers run it).
 
     python3 tools/torch_step_profile.py [--warm 2000] [--steps 48] [--runs 24]
+        [--prior-mode unlabeled --n-pseudo-obs 5 --marginal]
 """
 import argparse
 import collections
@@ -31,6 +34,10 @@ def main():
     ap.add_argument("--runs", type=int, default=1,
                     help="runs stepped together (1: a single run; seeds "
                          "from split_seeds(2018, R) otherwise)")
+    ap.add_argument("--prior-mode", default="global",
+                    choices=("global", "pseudo", "labeled", "unlabeled"))
+    ap.add_argument("--n-pseudo-obs", type=int, default=0)
+    ap.add_argument("--marginal", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -45,7 +52,9 @@ def main():
                                  split_seeds)
     from repro_torch.sim.simulator import _accumulate_step, _steps, _tree_map
 
-    cfg = PAPER_FULL._replace(agg_refresh_steps=12)
+    cfg = PAPER_FULL._replace(agg_refresh_steps=12,
+                              prior_mode=args.prior_mode,
+                              n_pseudo_obs=args.n_pseudo_obs)
     if args.warm + args.steps > cfg.n_steps:
         sys.exit(f"--warm + --steps exceeds the run's {cfg.n_steps} steps")
     dev = torch.device("cuda")
@@ -53,16 +62,18 @@ def main():
         cfg, geometric_grid(cfg.dt, 3 * cfg.horizon_hours, 48), SECOND,
         device=dev)
     policy = make_policy(SECOND, rho=0.112, capacity=cfg.capacity,
-                         device=dev)
+                         marginal=args.marginal, device=dev)
     if args.runs == 1:
         runs, gen = None, torch.Generator(device=dev).manual_seed(2018)
-        steps = _steps(draw_arrival_stream(gen, cfg))
+        stream = draw_arrival_stream(gen, cfg)
     else:
         runs = args.runs
         gen = [torch.Generator(device=dev).manual_seed(s)
                for s in split_seeds(2018, runs)]
-        steps = _steps(_tree_map(lambda *xs: torch.stack(xs, dim=1),
-                                 *(draw_arrival_stream(g, cfg) for g in gen)))
+        stream = _tree_map(lambda *xs: torch.stack(xs, dim=1),
+                           *(draw_arrival_stream(g, cfg) for g in gen))
+    # as make_run: the candidates' rows once a run, a step's are views
+    steps, rows = _steps(stream), _steps(core.candidate_rows(stream))
     arange_a = torch.arange(cfg.max_arrivals, device=dev)
     state = [core.init(runs)]
 
@@ -74,7 +85,7 @@ def main():
         st = steps[t]
         valid = arange_a < st.n_arrivals[..., None]
         cs, accept = core.decide_batch(policy, cs, out.util,
-                                       core.candidates(st), st, valid)
+                                       core.candidates(rows[t]), st, valid)
         n_acc = torch.sum(accept.float(), dim=-1)
         slots, _ = _accumulate_step(
             cs.slots, out, n_acc, torch.sum(valid.float(), dim=-1) - n_acc,
@@ -109,6 +120,8 @@ def main():
     print(json.dumps({
         "card": card,
         "config": "PAPER_FULL, SECOND rho 0.112, agg_refresh_steps 12, N 48",
+        "prior_mode": args.prior_mode, "n_pseudo_obs": args.n_pseudo_obs,
+        "marginal": args.marginal,
         "runs": args.runs, "warm_steps": args.warm, "steps": n,
         "occupied_slots_per_run": float(state[0].slots.alive.sum())
         / args.runs,
