@@ -100,6 +100,21 @@ time:
                tokens; then the engine on the card against the engine on the
                CPU at full width, 2 layers, float32: equal tokens up to
                counted float32 ties.
+ 11. online engine — ``repro_torch.serve.OnlineAdmissionEngine`` at
+               PAPER_FULL (phase 4's SECOND run: seed 2018, rho 0.112, the
+               ``full`` grid, K = 12, micro-batch 8), ticked with phase 4's
+               generator and deciding its stream through ``decide_slice``
+               for all 4,380 ticks: accept masks and metrics equal phase 4's
+               bit for bit, 365 aggregate and 4,380 row launches; ticks/s,
+               decisions/s, a flush's host ms (p50/p99) and device ms
+               between CUDA events. Again with the telemetry rider (same
+               bits; admits + rejects = decisions). The naive lane for 200
+               ticks (one aggregate launch a request). The deadline
+               scheduler (SLO 50 ms) fed by a ticker thread and 4 submitter
+               threads for 500 ticks: every future resolves; misses and
+               latency p50/p99 against the SLO; one ``GET /metrics`` from
+               an ephemeral port, parsed, carrying the rider's counters.
+               Last, a profile of 48 ticks (kernels a tick, idle share).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -165,6 +180,7 @@ BF16_TOL = 2e-2              # layer outputs in bf16
 F32_LOGIT_RMS = 1e-4         # float32 logits of the two attention lanes
 LOGIT_TIE = 1e-4             # float32 logits closer than this are a tie
 DEVICE = "cuda"
+ENGINE_SLO_MS = 50.0         # phase 11's deadline scheduler: decision SLO
 
 
 def log(msg):
@@ -539,12 +555,12 @@ def main_path(records):
              dict(threshold=PAPER_TABLE2["zeroth_threshold"]))]
     out = {}
     for name, kind, kw in runs:
-        run = make_run(cfg, grid, kind, device=DEVICE)
+        run = make_run(cfg, grid, kind, record_decisions=True, device=DEVICE)
         policy = make_policy(kind, capacity=cfg.capacity, **kw)
         torch.cuda.synchronize()
         K.reset_launches()
         t0 = time.perf_counter()
-        m = run(2018, policy)
+        m, accept = run(2018, policy)
         util, fail = float(m.utilization), float(m.failure_rate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -567,7 +583,8 @@ def main_path(records):
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, want {want}")
         out[name] = dict(utilization=util, failure_rate=fail, wall_s=wall,
-                         steps_per_s=cfg.n_steps / wall, metrics=m)
+                         steps_per_s=cfg.n_steps / wall, metrics=m,
+                         accept=accept)
         if kind == SECOND:
             for k in records:
                 records[k]["launches"] = launches[k]
@@ -905,12 +922,11 @@ def lockstep(prior_mode="global", n_obs=0):
         ev = cores["cpu"].sample_events(gen, cs["cpu"].slots)
         acc, diag = {}, {}
         for d in devs:
-            slots, out = cores[d].apply_step_events(cs[d].slots,
-                                                    tree_to(ev, d))
+            observed, out = cores[d].observe_events(cs[d], tree_to(ev, d))
             st = steps[d][t]
             valid = arange[d] < st.n_arrivals
             c, acc[d], diag[d] = cores[d].decide_batch_traced(
-                pols[d], cs[d]._replace(slots=slots), out.util,
+                pols[d], observed, out.util,
                 cores[d].candidates(rows[d][t]), st, valid)
             n_acc = torch.sum(acc[d].float())
             n_rej = torch.sum(valid.float()) - n_acc
@@ -1418,8 +1434,12 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # a record_function range (the engine's ``annotate``) also shows as an
+    # event on the device's timeline: not a kernel
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("repro.")]
     by_name = collections.defaultdict(float)
     for e in kernels:
         by_name[e.name] += 1e-3 * e.time_range.elapsed_us()
@@ -1712,6 +1732,283 @@ def server(cfg, model, params):
         f"{max(card.seen):.3e}")
 
 
+def _percentile_ms(values, p):
+    values = sorted(values)
+    return 1e3 * values[min(len(values) - 1, int(p * len(values)))]
+
+
+def engine_run(cfg, grid, policy, n_ticks, naive=False, timed=False,
+               profile_at=None):
+    """The online engine ticked with a generator seeded 2018 (phase 4's
+    run's) for ``n_ticks``, deciding each window's arrivals of the stream
+    drawn from it: through ``decide_slice`` (one 8-lane slice a tick), or
+    on the naive lane through ``submit``/``flush`` (one request a
+    decision). Returns the engine, its accept masks, its metrics, the wall
+    time, with ``timed`` each flush's host seconds and device ms between
+    CUDA events, and with ``profile_at`` ``profile_device``'s numbers of
+    the 48 ticks from that tick on (left out of the flush times)."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import to_numpy
+    from repro_torch.core import SECOND
+    from repro_torch.serve import Arrival, OnlineAdmissionEngine
+    from repro_torch.sim import draw_arrival_stream
+    from repro_torch.sim.simulator import _steps
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2018)
+    stream = draw_arrival_stream(gen, cfg)
+    host = to_numpy(stream)
+    lanes = np.arange(cfg.max_arrivals)
+    steps = _steps(stream)
+    eng = OnlineAdmissionEngine(cfg, grid, SECOND, policy,
+                                micro_batch=8, naive=naive, device=DEVICE)
+    stream_handle = torch.cuda.current_stream()
+    accepts, host_s, events = [], [], []
+
+    def one(t, timed):
+        eng.tick(gen=gen)
+        n = int(host.n_arrivals[t])
+        if naive:
+            futs = [eng.submit(Arrival.from_stream(host, t, a))
+                    for a in range(n)]
+            eng.flush()
+            row = np.zeros(cfg.max_arrivals, bool)
+            row[:n] = [f.result(timeout=60) for f in futs]
+            accepts.append(row)
+            return
+        if not timed:
+            accepts.append(eng.decide_slice(steps[t], lanes < n))
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream_handle)
+        h0 = time.perf_counter()
+        accepts.append(eng.decide_slice(steps[t], lanes < n))
+        host_s.append(time.perf_counter() - h0)
+        end.record(stream_handle)
+        events.append((start, end))
+
+    profiled = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = 0
+    while t < n_ticks:
+        if t == profile_at:
+            window = range(t, t + 48)
+            profiled = profile_device(lambda: [one(u, False) for u in window])
+            t += len(window)
+            continue
+        one(t, timed)
+        t += 1
+    m = eng.metrics()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    device_ms = [a.elapsed_time(b) for a, b in events]
+    return eng, np.stack(accepts), m, wall, host_s, device_ms, profiled
+
+
+def engine_path(records, single):
+    """Phase 11: the online engine at PAPER_FULL, against phase 4's run."""
+    import gc
+    import queue
+    import re
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from repro_torch.bridge import to_numpy
+    from repro_torch.configs import PAPER_FULL, PAPER_TABLE2
+    from repro_torch.core import SECOND, geometric_grid, make_policy
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.obs import MetricsServer, snapshot_to_prometheus
+    from repro_torch.serve import Arrival, OnlineAdmissionEngine
+    from repro_torch.sim import draw_arrival_stream
+
+    cfg = PAPER_FULL._replace(agg_refresh_steps=12)
+    grid = geometric_grid(cfg.dt, 3 * cfg.horizon_hours, 48, device=DEVICE)
+    policy = make_policy(SECOND, rho=PAPER_TABLE2["second_rho"],
+                         capacity=cfg.capacity)
+    want = single["second"]
+    want_accept = want["accept"].cpu().numpy()
+    n_refresh = cfg.n_steps // cfg.agg_refresh_steps
+
+    def check_equal(name, accept, m):
+        if not np.array_equal(accept, want_accept):
+            bad = np.argwhere(accept != want_accept)
+            raise AssertionError(f"{name}: decisions differ from phase 4's "
+                                 f"at (step, lane) {bad[:5].tolist()}")
+        for field in m._fields:
+            if not torch.equal(getattr(m, field),
+                               getattr(want["metrics"], field)):
+                raise AssertionError(f"{name}: {field} differs from phase "
+                                     "4's")
+
+    # 1. the engine through decide_slice, against phase 4's make_run
+    n_objects, gen2 = len(gc.get_objects()), gc.get_stats()[2]["collections"]
+    K.reset_launches()
+    eng, accept, m, wall, host_s, device_ms, _ = engine_run(
+        cfg, grid, policy, cfg.n_steps, timed=True)
+    gen2 = gc.get_stats()[2]["collections"] - gen2
+    launches = dict(K.LAUNCHES)
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches.update(moment_curves_agg_belief=n_refresh,
+                         moment_curves_belief=cfg.n_steps)
+    if launches != want_launches:
+        raise AssertionError(f"engine: launches {launches}, want "
+                             f"{want_launches}")
+    check_equal("engine", accept, m)
+    for name in ("moment_curves_belief", "moment_curves_agg_belief"):
+        records[name]["launches_engine"] = launches[name]
+    rate = eng.decisions / wall
+    log(f"engine at PAPER_FULL (decide_slice, micro-batch 8): {cfg.n_steps} "
+        f"ticks in {wall:.2f} s, {cfg.n_steps / wall:.1f} ticks/s, "
+        f"{eng.decisions} decisions, {rate:.1f} decisions/s (phase 4's "
+        f"make_run: {want['steps_per_s']:.1f} steps/s); a flush: host "
+        f"p50 {_percentile_ms(host_s, 0.5):.4f} ms, p99 "
+        f"{_percentile_ms(host_s, 0.99):.4f} ms; device between CUDA events "
+        f"p50 {statistics.median(device_ms):.4f} ms, p99 "
+        f"{sorted(device_ms)[int(0.99 * len(device_ms))]:.4f} ms; launches "
+        f"{launches}; decisions and metrics equal phase 4's bit for bit; "
+        f"{n_objects:,} Python objects tracked at its start, {gen2} full "
+        "collections during it")
+    # 2. the same with the telemetry rider
+    tel_cfg = cfg._replace(telemetry=True)
+    eng_t, accept_t, m_t, wall_t, *_ = engine_run(tel_cfg, grid, policy,
+                                                  cfg.n_steps)
+    check_equal("engine with telemetry", accept_t, m_t)
+    summary = eng_t.metrics_snapshot()["telemetry"]
+    decided = (summary["n_admit"] + summary["n_reject_capacity"]
+               + summary["n_reject_policy"])
+    if not decided == summary["n_routed"] == eng_t.decisions:
+        raise AssertionError(f"rider: {decided} admits + rejects, "
+                             f"{summary['n_routed']} routed, "
+                             f"{eng_t.decisions} decisions")
+    if summary["n_windows"] != cfg.n_steps or \
+            summary["n_refreshes"] != n_refresh:
+        raise AssertionError(f"rider: {summary['n_windows']} windows, "
+                             f"{summary['n_refreshes']} refreshes")
+    short = {k: v for k, v in summary.items() if not isinstance(v, list)}
+    short["staleness_hist"] = summary["staleness_hist"][:13]
+    log(f"engine with telemetry: {cfg.n_steps / wall_t:.1f} ticks/s "
+        f"({wall_t / wall:.3f}x the wall without); decisions and metrics "
+        f"equal phase 4's bit for bit; rider {json.dumps(short)}")
+
+    # 3. the naive lane: an aggregate recompute and a decision a request
+    n_naive = 200
+    K.reset_launches()
+    eng_n, _, _, wall_n, *_ = engine_run(cfg, grid, policy, n_naive,
+                                         naive=True)
+    launches = dict(K.LAUNCHES)
+    if not (launches["moment_curves_agg_belief"]
+            == launches["moment_curves_belief"] == eng_n.decisions > 0):
+        raise AssertionError(f"naive lane: launches {launches} for "
+                             f"{eng_n.decisions} decisions")
+    log(f"naive lane, {n_naive} ticks: {eng_n.decisions} decisions, "
+        f"{eng_n.decisions / wall_n:.1f} decisions/s against "
+        f"{rate:.1f} micro-batched ({rate / (eng_n.decisions / wall_n):.1f}x)"
+        f"; launches {launches}")
+
+    # 4. the deadline scheduler: a ticker and 4 submitters, then /metrics
+    n_ticks, n_sub = 500, 4
+    gen = torch.Generator(device=DEVICE).manual_seed(2018)
+    stream = draw_arrival_stream(gen, tel_cfg)
+    host = to_numpy(stream)
+    eng_d = OnlineAdmissionEngine(tel_cfg, grid, SECOND, policy,
+                                  micro_batch=8, flush_slo_ms=ENGINE_SLO_MS,
+                                  device=DEVICE)
+    inboxes = [queue.Queue() for _ in range(n_sub)]
+    futures, errors = [], []
+
+    def submitter(inbox):
+        try:
+            while (item := inbox.get()) is not None:
+                futures.append(eng_d.submit(Arrival.from_stream(host, *item)))
+        except Exception as exc:
+            errors.append(exc)
+
+    def ticker():
+        try:
+            for t in range(n_ticks):
+                eng_d.tick(gen=gen)
+                for a in range(int(host.n_arrivals[t])):
+                    inboxes[a % n_sub].put((t, a))
+        except Exception as exc:
+            errors.append(exc)
+        finally:
+            for inbox in inboxes:
+                inbox.put(None)
+
+    threads = [threading.Thread(target=ticker)] + [
+        threading.Thread(target=submitter, args=(q,)) for q in inboxes]
+    eng_d.start()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if any(th.is_alive() for th in threads) or errors:
+        raise AssertionError(f"deadline scheduler: threads alive or errors "
+                             f"{errors}")
+    results = [f.result(timeout=60) for f in futures]
+    wall_d = time.perf_counter() - t0
+    eng_d.stop()
+    want_n = int(host.n_arrivals[:n_ticks].sum())
+    if len(results) != want_n or eng_d.decisions != want_n:
+        raise AssertionError(f"deadline scheduler: {len(results)} futures, "
+                             f"{eng_d.decisions} decisions, {want_n} sent")
+    snap = eng_d.metrics_snapshot()
+    e = snap["engine"]
+    lat, batch = e["decision_latency_seconds"], e["flush_batch_size"]
+    server = MetricsServer(
+        lambda: snapshot_to_prometheus(eng_d.metrics_snapshot()), port=0)
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics", timeout=30
+        ).read().decode()
+    finally:
+        server.close()
+    samples = {}
+    for line in body.splitlines():
+        if line.startswith("#"):
+            continue
+        m_line = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^{}]*\})?) "
+                              r"(\S+)", line)
+        if m_line is None:
+            raise AssertionError(f"/metrics: malformed line {line!r}")
+        samples[m_line.group(1)] = float(m_line.group(2).replace(
+            "+Inf", "inf"))
+    tel = snap["telemetry"]
+    for name, value in (("repro_admission_admitted_total", tel["n_admit"]),
+                        ("repro_admission_windows_total", tel["n_windows"]),
+                        ("repro_admission_requests_total", want_n)):
+        if samples.get(name) != value:
+            raise AssertionError(f"/metrics: {name} {samples.get(name)}, "
+                                 f"want {value}")
+    log(f"deadline scheduler (SLO {ENGINE_SLO_MS:g} ms, 1 ticker + {n_sub} "
+        f"submitters, {n_ticks} ticks): {want_n} futures resolved in "
+        f"{wall_d:.2f} s ({want_n / wall_d:.1f} decisions/s), "
+        f"{e['n_flushes']} flushes, mean batch "
+        f"{batch.sum / max(batch.total, 1):.2f}, deadline misses "
+        f"{e['deadline_misses']}, latency p50 "
+        f"{1e3 * lat.percentile(0.5):.3f} ms, p99 "
+        f"{1e3 * lat.percentile(0.99):.3f} ms against the SLO "
+        f"{ENGINE_SLO_MS:g} ms; GET /metrics: {len(samples)} samples, "
+        f"admitted {samples['repro_admission_admitted_total']:.0f} of "
+        f"{want_n}")
+
+    # 5. a profile of 48 ticks (tick + decide_slice), last: torch.profiler
+    # runs after the timed items
+    *_, profiled = engine_run(cfg, grid, policy, 300, profile_at=252)
+    p_wall, p_busy, p_kernels, by_name = profiled
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"engine profile, ticks 252-299 (tick + decide_slice): "
+        f"{p_kernels / 48:.2f} CUDA kernels a tick, host {p_wall / 48:.3f} "
+        f"ms a tick (profiler on), device busy {p_busy / 48:.4f} ms a tick, "
+        f"idle share {1 - p_busy / p_wall:.3f}; largest: "
+        + ", ".join(f"{name[:48]} {ms / 48:.4f} ms" for name, ms in top))
+
+
 def main():
     import torch
 
@@ -1781,6 +2078,9 @@ def main():
 
     with phase("10. server"):
         server(cfg, model, params)
+
+    with phase("11. online engine at PAPER_FULL"):
+        engine_path(records, single)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

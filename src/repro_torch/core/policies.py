@@ -175,7 +175,10 @@ class AdmitResult(NamedTuple):
 
 def _admit(params: PolicyParams, agg_el, agg_vl, util, cands: MomentCurves,
            cand_c0, valid, verbose: bool, room=None):
-    accepts, diags, states = [], [], [(agg_el, agg_vl)]
+    """(AdmitResult, per-candidate detail): the ``DecisionDiag`` with
+    ``verbose``, else the list of [A] fit flags (unstacked: free when the
+    caller drops them)."""
+    accepts, diags, fits, states = [], [], [], [(agg_el, agg_vl)]
     for i in range(cand_c0.shape[-1]):
         c_el, c_vl = cands.EL[..., i, :], cands.VL[..., i, :]
         c0 = cand_c0[..., i]
@@ -183,8 +186,10 @@ def _admit(params: PolicyParams, agg_el, agg_vl, util, cands: MomentCurves,
         if verbose:
             acc, diag = decide_scored(params, agg_el, agg_vl, util, cand, c0)
             diags.append(diag)
-        else:
-            acc = decide(params, agg_el, agg_vl, util, cand, c0)
+        else:   # ``decide``, keeping its fit flag
+            el_after, cantelli = _after(params, agg_el, agg_vl, cand)
+            acc, fit = _decide_ok(params, util, c0, el_after, cantelli, cand)
+            fits.append(fit)
         acc = acc & valid[..., i]
         agg_el = torch.where(acc[..., None], agg_el + c_el, agg_el)
         agg_vl = torch.where(acc[..., None], agg_vl + c_vl, agg_vl)
@@ -202,7 +207,7 @@ def _admit(params: PolicyParams, agg_el, agg_vl, util, cands: MomentCurves,
                           for x in zip(*states))
     res = AdmitResult(accept, agg_el, agg_vl, util)
     if not verbose:
-        return res, None
+        return res, fits
     return res, DecisionDiag(*(torch.stack(x, dim=-1) for x in zip(*diags)))
 
 
@@ -217,6 +222,19 @@ def admit_sequential_verbose(
     Decisions are identical to ``admit_sequential``."""
     return _admit(params, agg_el, agg_vl, util, cands, cand_c0, valid,
                   verbose=True, room=room)
+
+
+def admit_sequential_fits(
+        params: PolicyParams, agg_el: torch.Tensor, agg_vl: torch.Tensor,
+        util: torch.Tensor, cands: MomentCurves, cand_c0: torch.Tensor,
+        valid: torch.Tensor, *, room: Optional[torch.Tensor] = None
+        ) -> tuple[AdmitResult, torch.Tensor]:
+    """``admit_sequential`` plus each candidate's physical-fit flag at its
+    decision point ([A]): the telemetry rider's input, without the scores
+    ``admit_sequential_verbose`` computes. Decisions are identical."""
+    res, fits = _admit(params, agg_el, agg_vl, util, cands, cand_c0, valid,
+                       verbose=False, room=room)
+    return res, torch.stack(fits, dim=-1)
 
 
 def admit_sequential(params: PolicyParams, agg_el: torch.Tensor,

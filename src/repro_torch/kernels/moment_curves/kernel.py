@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -50,6 +51,10 @@ AGG_MAX_N = 256    # grid points of the aggregate (its shared-memory sums)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (device index, stream handle) -> the aggregate's grid-barrier slot
 _BARRIER_SLOTS: dict = {}
+# guards the build and the slot table: launchers are called from several
+# threads (the online engine's pump and deadline threads, its caller), and
+# two streams handed one slot would share one grid barrier
+_LOCK = threading.RLock()
 # (device index, belief form, N) -> mc_agg_capacity's numbers
 _AGG_RESIDENCY: dict = {}
 
@@ -61,8 +66,14 @@ def reset_launches() -> None:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built library with its C signatures declared (built on first use)."""
-    lib = load_library(SOURCE)
+    """The built library with its C signatures declared (built on first
+    use; two threads that miss the cache at once build it one after the
+    other, and the second finds it loaded)."""
+    with _LOCK:
+        return _declare(load_library(SOURCE))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     cols = [_P] * 7
     consts = [_F] * 5
     grids = [_P, _P, _P, _I, _I, _I]                      # t, idx, frac, d, n, nd
@@ -107,14 +118,18 @@ def agg_residency(belief: bool, n: int, device=None) -> dict:
 
 
 def _barrier_slot(device_index: int, stream: int) -> int:
+    """The grid-barrier slot of ``stream`` on device ``device_index``: one
+    slot a stream, handed out once under the lock."""
     key = (device_index, stream)
-    slot = _BARRIER_SLOTS.get(key)
-    if slot is None:
-        slot = sum(1 for d, _ in _BARRIER_SLOTS if d == device_index)
-        if slot >= _library().mc_barrier_slots():
-            raise RuntimeError("the aggregate kernel has a grid barrier for "
-                               f"{slot} streams a device; all are taken")
-        _BARRIER_SLOTS[key] = slot
+    with _LOCK:
+        slot = _BARRIER_SLOTS.get(key)
+        if slot is None:
+            slot = sum(1 for d, _ in _BARRIER_SLOTS if d == device_index)
+            if slot >= _library().mc_barrier_slots():
+                raise RuntimeError("the aggregate kernel has a grid barrier "
+                                   f"for {slot} streams a device; all are "
+                                   "taken")
+            _BARRIER_SLOTS[key] = slot
     return slot
 
 

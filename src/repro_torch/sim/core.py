@@ -1,8 +1,8 @@
 """The admission core: one state + function layer under the simulator.
 
 PyTorch counterpart of ``repro.sim.core`` for one cluster, every prior mode
-(GLOBAL, §6 PSEUDO, §7 MIX_LABELED and MIX_UNLABELED), no mesh and no
-telemetry:
+(GLOBAL, §6 PSEUDO, §7 MIX_LABELED and MIX_UNLABELED), with the telemetry
+rider and no mesh:
 
   * ``CoreState`` — the slot table with per-deployment conjugate beliefs
     (``SimState``) plus the incrementally-maintained cluster aggregate
@@ -14,14 +14,22 @@ telemetry:
                                            runs: a leading run axis)
       - ``refresh_aggregates(cs)``         full aggregate recompute
       - ``sample_events(gen, slots)``      one step's random events
-      - ``apply_step_events(slots, ev)``   deaths / scale-out grants /
-                                           belief updates from given events
-      - ``apply_events(gen, cs)``          the two above, composed
+      - ``observe_events(cs, ev)``         deaths / scale-out grants /
+                                           belief updates (and the rider's
+                                           window fold) from given events
+      - ``apply_events(gen, cs)``          sampling, then ``observe_events``
       - ``candidate_rows(stream)``         the rows the candidates' curves
                                            read (a run's, once)
       - ``candidates(rows_t)``             [A, N] candidate moment curves
       - ``decide_batch(policy, cs, …)``    sequential admission + slot
                                            placement + incremental fold
+
+With ``SimConfig(telemetry=True)`` the state carries the
+``obs.counters.TelemetryState`` rider: ``refresh_aggregates`` marks the
+refresh, ``observe_events`` folds the window, ``decide_batch`` the
+decisions (through ``admit_sequential_fits``, whose decisions are
+``admit_sequential``'s). Off, ``CoreState.tel`` is ``None`` and nothing of
+it runs.
 
 Splitting the step's sampling from its arithmetic lets a test hand the JAX
 package's own event draws to the port (the two packages' random bits
@@ -56,19 +64,21 @@ from ..core.belief import (GammaBelief, apply_pseudo_observations,
 from ..core.moments import (MomentCurves, aggregate_moment_curves,
                             moment_curves, moment_curves_fused)
 from ..core.policies import (ZEROTH, PolicyParams, admit_sequential,
-                             admit_sequential_verbose)
+                             admit_sequential_fits, admit_sequential_verbose)
 from ..core.pricing import mixture_moments
 from ..core.processes import (F32, DeploymentParams, PopulationPriors,
                               StepEvents, sample_initial_size, sample_params,
                               sample_pseudo_observations, sample_step_events)
 from ..device import resolve_device
+from ..obs.counters import (TelemetryState, WindowStats, fold_decisions,
+                            fold_window, init_telemetry, mark_refresh)
 
 GLOBAL, PSEUDO, MIX_LABELED, MIX_UNLABELED = "global", "pseudo", "labeled", "unlabeled"
 AGG_FUSED, AGG_REFERENCE, AGG_KERNEL = "fused", "reference", "kernel"
 
 # where each option the port leaves out will be ported
 _NOT_PORTED = "is not ported yet: ROADMAP.md, Queue A, {!r}"
-_ROADMAP_TELEMETRY = "Telemetry, mesh and fleet"
+_ROADMAP_MESH = "Telemetry, mesh and fleet"
 # the two components' weights of an unlabeled (§7) arrival
 _MIX_WEIGHTS = (0.5, 0.5)
 
@@ -95,7 +105,8 @@ class SimConfig(NamedTuple):
                                      # curves are folded in incrementally
     priors: PopulationPriors = None  # population priors; prefer make_config,
                                      # which defaults these to AZURE_PRIORS
-    telemetry: bool = False          # the telemetry rider is not ported
+    telemetry: bool = False          # carry the obs.counters.TelemetryState
+                                     # rider in CoreState.tel
 
     @property
     def n_steps(self) -> int:
@@ -146,12 +157,6 @@ def _validate_config(cfg: SimConfig) -> SimConfig:
     return cfg
 
 
-def _check_ported(cfg: SimConfig):
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry=True " + _NOT_PORTED.format(_ROADMAP_TELEMETRY))
-
-
 def tree_to(tree, device):
     """Move every tensor leaf of a (nested) NamedTuple to ``device``."""
     if isinstance(tree, torch.Tensor):
@@ -198,7 +203,6 @@ def draw_arrival_stream(gen: torch.Generator, cfg: SimConfig) -> ArrivalStream:
     ``bel`` then sees the request size C0; ``bel_alt`` does not, as in the
     JAX package (outside the mixture modes it is ``bel`` before C0). The
     GLOBAL draws come first, in the same order in every mode."""
-    _check_ported(cfg)
     device = gen.device
     t_steps, a_max = cfg.n_steps, cfg.max_arrivals
     shape = (t_steps, a_max)
@@ -286,16 +290,16 @@ class SimState(NamedTuple):
 
 
 class CoreState(NamedTuple):
-    """The complete admission state: slot table + beliefs (``slots``) and the
-    incrementally-maintained cluster-wide aggregate moment curves. ``tel``
-    mirrors the JAX package's telemetry rider, which is not ported: always
-    ``None``."""
+    """The complete admission state: slot table + beliefs (``slots``), the
+    incrementally-maintained cluster-wide aggregate moment curves, and the
+    telemetry rider ``tel`` (an ``obs.counters.TelemetryState`` with
+    ``SimConfig(telemetry=True)``, else ``None``)."""
 
     slots: SimState
     agg_el: torch.Tensor          # [N] ([R, N]) aggregate E[L_n] over
                                   # admitted slots
     agg_vl: torch.Tensor          # [N] ([R, N]) aggregate V[L_n]
-    tel: Optional[object] = None
+    tel: Optional[TelemetryState] = None
 
 
 class StepOutcome(NamedTuple):
@@ -446,11 +450,13 @@ def _sample_events(cfg: SimConfig, gen, slots: SimState) -> StepEvents:
 
 
 def _apply_step_events(cfg: SimConfig, slots: SimState, ev: StepEvents,
-                       capacity):
+                       capacity, with_stats: bool = False):
     """Steps 1–3 of one ``dt``-hour step from given events: deaths,
     scale-out grants against ``capacity`` in slot order, and conjugate
-    belief updates. Returns (slots, StepOutcome); the metric accumulators
-    are untouched (the caller folds them after admission)."""
+    belief updates. Returns (slots, StepOutcome, stats); the metric
+    accumulators are untouched (the caller folds them after admission).
+    ``stats`` is the window's ``WindowStats`` when ``with_stats`` (the
+    telemetry rider's input), else ``None``."""
     alive_f = slots.alive.to(F32)
 
     # 1. deaths ---------------------------------------------------------
@@ -476,10 +482,20 @@ def _apply_step_events(cfg: SimConfig, slots: SimState, ev: StepEvents,
         slots.bel, core_deaths=deaths, exposure_core_hours=exposure,
         n_scaleouts=n_req, scaleout_cores=req, alive_hours=cfg.dt * alive_f,
         priors=cfg.priors)
+    n_requests = torch.sum(n_req, dim=-1)
+    stats = None
+    if with_stats:
+        total = lambda x: torch.sum(x, dim=-1)
+        stats = WindowStats(
+            core_deaths=total(deaths), exposure_core_hours=total(exposure),
+            n_scaleouts=n_requests, scaleout_cores=total(req),
+            alive_hours=cfg.dt * total(alive_f),
+            spont_deaths=total((ev.spont_death & slots.alive).to(F32)),
+            departed=departed)
     slots = slots._replace(alive=alive, cores=cores, bel=bel)
     return slots, StepOutcome(util=util, failed=failed,
-                              n_requests=torch.sum(n_req, dim=-1),
-                              departed=departed)
+                              n_requests=n_requests,
+                              departed=departed), stats
 
 
 class AdmissionCore(NamedTuple):
@@ -495,7 +511,7 @@ class AdmissionCore(NamedTuple):
     init: Callable[..., CoreState]
     refresh_aggregates: Callable[[CoreState], CoreState]
     sample_events: Callable[..., StepEvents]
-    apply_step_events: Callable[..., tuple]
+    observe_events: Callable[..., tuple]
     apply_events: Callable[..., tuple]
     candidate_rows: Callable[[ArrivalStream], CandidateRows]
     candidates: Callable[[CandidateRows], MomentCurves]
@@ -508,10 +524,9 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
     """Build the admission-core function bundle for one configuration, on
     ``device`` (the card unless the caller passes ``"cpu"``)."""
     _validate_config(cfg)
-    _check_ported(cfg)
     if mesh is not None:
         raise NotImplementedError(
-            "a device mesh " + _NOT_PORTED.format(_ROADMAP_TELEMETRY))
+            "a device mesh " + _NOT_PORTED.format(_ROADMAP_MESH))
     device = resolve_device(device)
     if not isinstance(grid, torch.Tensor):
         grid = torch.tensor(grid, dtype=F32)
@@ -527,34 +542,41 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         lead = () if runs is None else (runs,)
         zeros = lambda: torch.zeros((*lead, n_grid), dtype=F32,
                                     device=device)
+        tel = init_telemetry(runs, device) if cfg.telemetry else None
         return CoreState(slots=_init_state(cfg, device, runs), agg_el=zeros(),
-                         agg_vl=zeros())
+                         agg_vl=zeros(), tel=tel)
 
     def refresh_aggregates(cs: CoreState) -> CoreState:
         """Full aggregate recompute from the slot table (block boundary).
         Zeroth-moment policies never read the curves, so their refresh
-        keeps the zero placeholder instead of paying for the reduction."""
+        keeps the zero placeholder instead of paying for the reduction.
+        With telemetry the rider's staleness clock returns to zero."""
+        tel = mark_refresh(cs.tel) if cfg.telemetry else cs.tel
         if not needs_moments:
             return cs._replace(agg_el=torch.zeros_like(cs.agg_el),
-                               agg_vl=torch.zeros_like(cs.agg_vl))
+                               agg_vl=torch.zeros_like(cs.agg_vl), tel=tel)
         agg = aggregate_fn(cs.slots.bel, cs.slots.cores, cs.slots.alive)
-        return cs._replace(agg_el=agg.EL, agg_vl=agg.VL)
+        return cs._replace(agg_el=agg.EL, agg_vl=agg.VL, tel=tel)
 
     def sample_events(gen, slots: SimState) -> StepEvents:
         return _sample_events(cfg, gen, slots)
 
-    def apply_step_events(slots: SimState, events: StepEvents,
-                          capacity=None):
+    def observe_events(cs: CoreState, events: StepEvents, capacity=None):
+        """One ``dt``-hour step of cluster dynamics from given (observed or
+        pre-drawn) events; with telemetry the rider folds the window's
+        occupancy and observable sufficient statistics. The maintained
+        aggregate is NOT touched — within-block staleness is the
+        ``agg_refresh_steps`` contract."""
         cap = cfg.capacity if capacity is None else capacity
-        return _apply_step_events(cfg, slots, events, cap)
+        slots, out, stats = _apply_step_events(cfg, cs.slots, events, cap,
+                                               with_stats=cfg.telemetry)
+        tel = (fold_window(cs.tel, out.util, cap, stats) if cfg.telemetry
+               else cs.tel)
+        return cs._replace(slots=slots, tel=tel), out
 
     def apply_events(gen, cs: CoreState, capacity=None):
-        """One ``dt``-hour step of cluster dynamics with freshly sampled
-        events. The maintained aggregate is NOT touched — within-block
-        staleness is the ``agg_refresh_steps`` contract."""
-        slots, out = apply_step_events(cs.slots,
-                                       sample_events(gen, cs.slots), capacity)
-        return cs._replace(slots=slots), out
+        """``observe_events`` on freshly sampled events."""
+        return observe_events(cs, sample_events(gen, cs.slots), capacity)
 
     def _decide_core(policy: PolicyParams, cs: CoreState, util,
                      cand: MomentCurves, stream_t: ArrivalStream, valid,
@@ -564,26 +586,30 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         # the same for a run alone and in a batch
         room = (torch.sum(~cs.slots.alive, dim=-1) if needs_moments
                 else None)
+        args = (policy, cs.agg_el, cs.agg_vl, util, cand, stream_t.c0, valid)
+        diag = fits = None
         if verbose:
-            res, diag = admit_sequential_verbose(
-                policy, cs.agg_el, cs.agg_vl, util, cand, stream_t.c0, valid,
-                room=room)
+            res, diag = admit_sequential_verbose(*args, room=room)
+            fits = diag.fits
+        elif cfg.telemetry:     # the rider needs the fit flags, not scores
+            res, fits = admit_sequential_fits(*args, room=room)
         else:
-            res = admit_sequential(policy, cs.agg_el, cs.agg_vl, util, cand,
-                                   stream_t.c0, valid, room=room)
-            diag = None
-        slots, _ = _place_arrivals(cs.slots, res.accept, stream_t)
+            res = admit_sequential(*args, room=room)
+        slots, placed = _place_arrivals(cs.slots, res.accept, stream_t)
         agg_el, agg_vl = ((res.agg_el, res.agg_vl) if needs_moments
                           else (cs.agg_el, cs.agg_vl))
-        return CoreState(slots=slots, agg_el=agg_el,
-                         agg_vl=agg_vl), res.accept, diag
+        tel = (fold_decisions(cs.tel, res.accept, valid, fits, placed,
+                              stream_t.c0) if cfg.telemetry else cs.tel)
+        return CoreState(slots=slots, agg_el=agg_el, agg_vl=agg_vl,
+                         tel=tel), res.accept, diag
 
     def decide_batch(policy: PolicyParams, cs: CoreState, util,
                      cand: MomentCurves, stream_t: ArrivalStream, valid):
         """Greedy first-come-first-served admission of a candidate batch
         against the maintained aggregate (paper Assumption 3), slot
         placement, and the incremental aggregate fold of *placed* arrivals.
-        Returns (cs, accept [A])."""
+        Returns (cs, accept [A]). With telemetry the rider folds the
+        batch's reason counters and the admitted-arrival stream moments."""
         cs, accept, _ = _decide_core(policy, cs, util, cand, stream_t, valid,
                                      verbose=False)
         return cs, accept
@@ -600,7 +626,7 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         cfg=cfg, grid=grid, policy_kind=policy_kind,
         needs_moments=needs_moments, n_grid=n_grid, device=device, init=init,
         refresh_aggregates=refresh_aggregates, sample_events=sample_events,
-        apply_step_events=apply_step_events, apply_events=apply_events,
+        observe_events=observe_events, apply_events=apply_events,
         candidate_rows=lambda stream: candidate_rows(cfg, stream),
         candidates=candidates_fn, decide_batch=decide_batch,
         decide_batch_traced=decide_batch_traced)

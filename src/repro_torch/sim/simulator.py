@@ -63,10 +63,14 @@ class RunMetrics(NamedTuple):
 
 
 def _run_metrics(cfg: SimConfig, slots: SimState, util_trace,
-                 fail_trace) -> RunMetrics:
-    """Assemble ``RunMetrics`` from the final slot-table accumulators."""
+                 fail_trace, horizon_hours=None) -> RunMetrics:
+    """Assemble ``RunMetrics`` from the final slot-table accumulators.
+    Shared by ``make_run`` and the online engine (which passes the hours
+    its ticks covered so far), so "final metrics" means the same arithmetic
+    in both."""
+    horizon = cfg.horizon_hours if horizon_hours is None else horizon_hours
     return RunMetrics(
-        utilization=slots.core_hours / (cfg.horizon_hours * cfg.capacity),
+        utilization=slots.core_hours / (horizon * cfg.capacity),
         failure_rate=slots.fail_requests
         / torch.clamp(slots.total_requests, min=1.0),
         total_requests=slots.total_requests,
@@ -162,14 +166,18 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
     per-step event sampling — the counterpart of ``stream=`` that lets a
     test drive the port with another package's draws. The run returns
     ``RunMetrics``, or ``(RunMetrics, accept [T, A])`` with
-    ``record_decisions=True``.
+    ``record_decisions=True``. With ``cfg.telemetry`` the final
+    ``obs.counters.TelemetryState`` rider is one more element (``(metrics,
+    tel)`` or ``(metrics, accept, tel)``); decisions and metrics are
+    bit-identical with the rider on or off.
 
     A batch: ``gen_or_seed`` a sequence of R seeds or generators (or a 1-d
     array of seeds), ``policy`` leaves 0-d (shared) or [R], ``stream`` a
     stacked batch with a leading [R] (leaves [R, T, A], as the JAX package
     stacks them), ``events`` per step with [R, S] leaves. The batch's
     metrics have a leading [R] (``accept`` is [R, T, A]), and run r equals
-    the run alone on its seed bit for bit.
+    the run alone on its seed bit for bit (its rider: leaves with a leading
+    [R]).
 
     The loop is blocked by ``cfg.agg_refresh_steps`` (= K): the aggregate
     curves are recomputed from the slot array once per block and, inside a
@@ -215,9 +223,7 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
             if events is None:
                 cs, out = core.apply_events(gen, cs)
             else:
-                slots, out = core.apply_step_events(
-                    cs.slots, tree_to(events[t], device))
-                cs = cs._replace(slots=slots)
+                cs, out = core.observe_events(cs, tree_to(events[t], device))
 
             # 4. arrivals, admitted against the maintained aggregate ------
             valid = arange_a < stream_t.n_arrivals[..., None]
@@ -234,9 +240,12 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
             accepts.append(accept)
         metrics = _run_metrics(cfg, cs.slots, torch.stack(util_trace, dim=-1),
                                torch.stack(fail_trace, dim=-1))
+        result = (metrics,)
         if record_decisions:
-            return metrics, torch.stack(accepts, dim=-2)
-        return metrics
+            result += (torch.stack(accepts, dim=-2),)
+        if cfg.telemetry:
+            result += (cs.tel,)
+        return result if len(result) > 1 else metrics
 
     return run
 

@@ -23,7 +23,9 @@ must be one CUDA kernel a call. The bf16 flash kernel is also run at sequence
 lengths around its tiles, on views of a fused QKV tensor, and must refuse a
 view that TMA cannot copy. A small
 simulator run on the card must repeat bit for bit and conserve deployments,
-and a small LM on the card must match the same LM on the CPU.
+the online engine on the card must equal that run bit for bit (and its
+pump thread launch on the engine's stream), and a small LM on the card
+must match the same LM on the CPU.
 """
 import numpy as np
 import pytest
@@ -164,6 +166,72 @@ def test_card_run_is_deterministic_and_conserves(card):
     assert float(m1.alive_end) == float(
         m1.arrivals_accepted - m1.slot_overflow - m1.n_departed)
     assert 0.0 < float(m1.utilization) <= 1.0
+
+
+def _card_engine_case(card, telemetry):
+    cfg = make_config(capacity=500.0, arrival_rate=0.08,
+                      horizon_hours=30 * 24.0, dt=24.0, max_slots=96,
+                      max_arrivals=4, d_points=8, agg_refresh_steps=3,
+                      telemetry=telemetry)
+    grid = geometric_grid(24.0, 3 * 30 * 24.0, 12)
+    return cfg, grid, make_policy(SECOND, rho=0.05, capacity=cfg.capacity)
+
+
+@pytest.mark.parametrize("telemetry", [False, True], ids=["off", "on"])
+def test_card_engine_equals_make_run(card, telemetry):
+    """The online engine on the card, driven by make_run's generator and
+    stream, takes make_run's decisions and gives its metrics (and rider)
+    bit for bit, with one row launch a tick and one aggregate a refresh."""
+    from repro_torch.serve import OnlineAdmissionEngine
+    from repro_torch.sim import draw_arrival_stream
+    from repro_torch.sim.simulator import _steps
+
+    cfg, grid, policy = _card_engine_case(card, telemetry)
+    want = make_run(cfg, grid, SECOND, record_decisions=True,
+                    device=card)(1, policy)
+    gen = torch.Generator(device=card).manual_seed(1)
+    stream = draw_arrival_stream(gen, cfg)
+    n_arr = stream.n_arrivals.cpu().numpy()
+    eng = OnlineAdmissionEngine(cfg, grid, SECOND, policy, device=card)
+    K.reset_launches()
+    accept = []
+    for t, slice_t in enumerate(_steps(stream)):
+        eng.tick(gen=gen)
+        accept.append(eng.decide_slice(slice_t, np.arange(4) < n_arr[t]))
+    assert K.LAUNCHES["moment_curves_belief"] == cfg.n_steps
+    assert K.LAUNCHES["moment_curves_agg_belief"] == cfg.n_steps // 3
+    np.testing.assert_array_equal(np.stack(accept), want[1].cpu().numpy())
+    for x, y in zip(eng.metrics(), want[0]):
+        assert torch.equal(x, y)
+    if telemetry:
+        for x, y in zip(eng._cs.tel, want[2]):
+            assert torch.equal(x, y)
+
+
+def test_card_engine_pump_launches_on_the_engine_stream(card):
+    """A pump thread's flushes launch the kernels on the stream the engine
+    was built on (here a side stream; the thread starts on the default
+    one): the naive lane's aggregate takes that stream's barrier slot."""
+    from repro_torch.serve import Arrival, OnlineAdmissionEngine
+
+    cfg, grid, policy = _card_engine_case(card, True)
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        eng = OnlineAdmissionEngine(cfg, grid, SECOND, policy, naive=True,
+                                    micro_batch=4, device=card)
+    eng.tick(gen=torch.Generator(device=card).manual_seed(0))
+    host_gen = torch.Generator().manual_seed(7)
+    K.reset_launches()
+    eng.start(interval_s=0.001)
+    try:
+        futs = [eng.submit(Arrival.draw(host_gen, cfg)) for _ in range(6)]
+        assert all(isinstance(f.result(timeout=60), bool) for f in futs)
+    finally:
+        eng.stop()
+    assert K.LAUNCHES["moment_curves_agg_belief"] == 6
+    assert K.LAUNCHES["moment_curves_belief"] == 6
+    assert (card.index or 0, side.cuda_stream) in K._BARRIER_SLOTS
+    assert eng.metrics_snapshot()["telemetry"]["n_routed"] == 6
 
 
 @pytest.mark.parametrize("runs,d,n", [(1, 96, 12), (3, 8193, 48),

@@ -43,7 +43,11 @@ def test_scan_sees_the_whole_port():
             port + "core/moments.py", port + "models/layers.py",
             port + "models/lm.py", port + "models/spec.py",
             port + "models/registry.py", port + "serve/engine.py",
-            port + "launch/serve.py", port + "configs/llama3_2_1b.py"} <= names
+            port + "launch/serve.py", port + "configs/llama3_2_1b.py",
+            port + "serve/admission.py", port + "launch/admission_daemon.py",
+            port + "obs/__init__.py", port + "obs/counters.py",
+            port + "obs/export.py", port + "obs/log.py",
+            port + "obs/tracing.py"} <= names
     for kernel in ("moment_curves", "flash_attention", "decode_gqa"):
         for name in ("kernel.py", "ops.py", "ref.py"):
             assert f"{port}kernels/{kernel}/{name}" in names
@@ -98,6 +102,30 @@ torch.testing.assert_close(flash.forward(params, tokens),
 engine = ServeEngine(model, params, max_batch=2, max_seq=16)
 engine.submit(Request(rid=0, prompt=np.asarray([3, 4, 5], np.int32)))
 assert engine.step() == 1
+assert not any(k.split(".")[0] in ("jax", "repro") and sys.modules[k]
+               for k in sys.modules)
+print("ok")
+"""
+    _run_blocked(code)
+
+
+def test_admission_engine_runs_with_jax_and_reference_blocked():
+    """The online engine and the daemon's loop, with the telemetry rider
+    and its Prometheus text, with JAX and the JAX package unimportable."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "repro", "flax"):
+    sys.modules[name] = None
+from repro_torch.launch import admission_daemon as D
+from repro_torch.obs import snapshot_to_prometheus
+args = D.parse_args(["--capacity", "500", "--hours", "96", "--dt", "24",
+                     "--max-slots", "32", "--micro-batch", "4",
+                     "--param", "0.05", "--telemetry", "--device", "cpu"])
+engine, stream, gen, _ = D.build_engine(args)
+summary = D.serve_loop(engine, stream, gen)
+assert summary["ticks"] == 4, summary
+text = snapshot_to_prometheus(engine.metrics_snapshot())
+assert "repro_admission_windows_total 4" in text, text
 assert not any(k.split(".")[0] in ("jax", "repro") and sys.modules[k]
                for k in sys.modules)
 print("ok")

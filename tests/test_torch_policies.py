@@ -131,6 +131,15 @@ def test_admit_sequential(kind, seed):
     assert float(got.util) == float(res.util)
     np.testing.assert_allclose(got_diag.score.numpy(), np.asarray(diag.score),
                                rtol=1e-6)
+    # the fit flags alone (the telemetry rider's input): the same decisions
+    # and the JAX package's flags
+    got_f, fits = P.admit_sequential_fits(
+        policy, t(x["agg_el"]), t(x["agg_vl"]), t(x["util"]),
+        TMomentCurves(t(x["cand_el"]), t(x["cand_vl"])), t(x["c0"]),
+        t(x["valid"]))
+    np.testing.assert_array_equal(got_f.accept.numpy(), np.asarray(res.accept))
+    np.testing.assert_array_equal(fits.numpy(), np.asarray(diag.fits))
+    assert torch.equal(fits, got_diag.fits)
 
 
 def test_is_safe():

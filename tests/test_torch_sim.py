@@ -153,9 +153,8 @@ def test_core_state_matches_reference_each_step(ref, lane):
     for t in range(cfg.n_steps):
         if t % cfg.agg_refresh_steps == 0:
             cs = core.refresh_aggregates(cs)
-        slots, out = core.apply_step_events(
-            cs.slots, bridge.from_reference(ref["events"][t]))
-        cs = cs._replace(slots=slots)
+        cs, out = core.observe_events(
+            cs, bridge.from_reference(ref["events"][t]))
         stream_t = type(stream)(*(
             type(x)(*(y[t] for y in x)) if isinstance(x, tuple) else x[t]
             for x in stream))
@@ -207,12 +206,14 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(telemetry=True), "Telemetry, mesh and fleet"),
+    (dict(mesh=object()), "Telemetry, mesh and fleet"),
 ])
 def test_unported_options_raise(change, match):
-    cfg = _port_cfg(CFG)._replace(**change)
+    # the telemetry rider is ported (tests/test_torch_telemetry.py); a
+    # device mesh is not
     with pytest.raises(NotImplementedError, match=match):
-        t_make_run(cfg, np.asarray(GRID), SECOND, device="cpu")
+        t_make_admission_core(_port_cfg(CFG), np.asarray(GRID), SECOND,
+                              device="cpu", **change)
 
 
 def test_config_validation_errors_match_reference():

@@ -119,12 +119,11 @@ def trace(cfg, grid, kind, keys, thetas):
         gap = dict(el=_rel(tcs.agg_el.numpy(), agg[0]),
                    vl=_rel(tcs.agg_vl.numpy(), agg[1]))
         worst_gap = max(worst_gap, gap["el"])
-        slots, out = tcore.apply_step_events(
-            tcs.slots, bridge.from_reference(jax.tree.map(np.asarray, ev)))
+        t_before, out = tcore.observe_events(
+            tcs, bridge.from_reference(jax.tree.map(np.asarray, ev)))
         st = _col(tstream, t)
         valid = arange < st.n_arrivals[:, None]
         tcand = tcore.candidates(tcore.candidate_rows(st))
-        t_before = tcs._replace(slots=slots)
         tcs, tacc, tdiag = tcore.decide_batch_traced(
             tpolicy, t_before, out.util, tcand, st, valid)
         n_acc = torch.sum(tacc.float(), -1)
