@@ -47,12 +47,14 @@ time:
                simulations and seconds, beside the JAX package's
                ``tuning/calibrate/*`` rows of BENCH_quick.json; every chosen
                theta feasible under the port's own measurement.
-  4d. modes  — SECOND with Def. 4's heuristic at PAPER_FULL in the GLOBAL,
-               §6 PSEUDO (50 observations) and §7 unlabeled (5 of each
-               type) modes, each a batch of 24 runs: one row-kernel launch a
-               step (both mixture components' rows in it) and one
-               aggregate a refresh; run 0 equal to its run alone bit for
-               bit; runs x steps/s, launches a step, utilization.
+  4d. modes  — SECOND with Def. 4's heuristic at PAPER_FULL cut to 180
+               days (720 of its 4,380 steps, to make room for phase 12)
+               in the GLOBAL, §6 PSEUDO (50 observations) and §7 unlabeled
+               (5 of each type) modes, each a batch of 24 runs: one
+               row-kernel launch a step (both mixture components' rows in
+               it) and one aggregate a refresh; run 0 equal to its run
+               alone bit for bit; runs x steps/s, launches a step,
+               utilization.
   4e. figures — ``repro_torch.benchmarks`` ``fig1_priors`` and
                ``fig2_pricing`` (with §8's fees) at the ``quick`` preset,
                each row beside the paper's number (not a gate;
@@ -115,6 +117,29 @@ time:
                latency p50/p99 against the SLO; one ``GET /metrics`` from
                an ephemeral port, parsed, carrying the rider's counters.
                Last, a profile of 48 ticks (kernels a tick, idle share).
+ 12. fleet   — ``make_fleet_run`` at PAPER_FULL split as the JAX package's
+               fleet benchmark splits it: 8,000 / 6,000 / 4,000 / 2,000
+               cores, 4,096 slots each, SECOND rho 0.112 through
+               ``fleet_policy``. A fleet of one (all 20,000 cores, 8,192
+               slots) takes phase 4's decisions bit for bit. Each router
+               (least utilized and power of two for all 4,380 steps,
+               random and cascade for 720) holds tests/test_fleet.py's
+               invariants (no cluster over its capacity, alive = accepted
+               - overflow - departed, fleet fields the clusters' sums, the
+               cascade admits every routed arrival and counts the rest as
+               rejected by all), with one aggregate launch a refresh for
+               the four clusters; steps/s, kernels a step and idle share
+               (profiles of 12 and 24 steps, differenced). A batch of 24
+               fleet runs for 600 steps (96 tables an aggregate launch):
+               run 2018 equal to the run alone bit for bit. The aggregate
+               at R = 4 and 96 tables of 4,096 slots against its plain
+               version and R one-run launches (times, bound);
+               ``paper_cascade``'s grid (~2,700 points) in chunks of 256
+               against its plain version, each window of <= 256 points
+               equal to a launch over it; a fleet refresh one CUDA kernel.
+               The fleet engine ticked by ``make_fleet_run``'s generators
+               for 600 ticks: its decisions and ``FleetMetrics`` equal
+               ``make_fleet_run``'s bit for bit; ticks/s, decisions/s.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -181,6 +206,7 @@ F32_LOGIT_RMS = 1e-4         # float32 logits of the two attention lanes
 LOGIT_TIE = 1e-4             # float32 logits closer than this are a tie
 DEVICE = "cuda"
 ENGINE_SLO_MS = 50.0         # phase 11's deadline scheduler: decision SLO
+MODES_STEPS = 720            # phase 4d's depth: 180 days of the 3 years
 
 
 def log(msg):
@@ -790,8 +816,10 @@ def modes_path(records):
     seeds = split_seeds(2018, 24)
     out = {}
     for mode, n_obs in (("global", 0), ("pseudo", 50), ("unlabeled", 5)):
+        # cut to MODES_STEPS of the 4,380 steps (phase 12's room)
         cfg = PAPER_FULL._replace(agg_refresh_steps=12, prior_mode=mode,
-                                  n_pseudo_obs=n_obs)
+                                  n_pseudo_obs=n_obs,
+                                  horizon_hours=MODES_STEPS * PAPER_FULL.dt)
         run = make_run(cfg, grid, SECOND, device=DEVICE)
         policy = make_policy(SECOND, rho=PAPER_TABLE2["second_rho"],
                              capacity=cfg.capacity, marginal=True)
@@ -2009,6 +2037,405 @@ def engine_path(records, single):
         + ", ".join(f"{name[:48]} {ms / 48:.4f} ms" for name, ms in top))
 
 
+# the JAX package's fleet benchmark (benchmarks/scenarios.py FLEET_FRACS):
+# PAPER_FULL's capacity as a big, two mid and a small cluster, each with
+# half the slots
+FLEET_FRACS = (0.4, 0.3, 0.2, 0.1)
+FLEET_ROUTER_STEPS = {"least_utilized": None, "power_of_two": None,
+                      "random": 720, "cascade": 720}   # None: all 4,380
+FLEET_BATCH_STEPS = 600      # phase 12's batch of 24 and its engine
+FLEET_PROFILE_STEPS = 12     # profiles of 12 and 24 steps, differenced
+
+
+def fleet_config(steps=None, capacities=None):
+    """PAPER_FULL (K = 12) as a fleet: ``FLEET_FRACS`` of its capacity, each
+    cluster with 4,096 slots (or ``capacities``, with all 8,192), cut to
+    ``steps`` steps when given."""
+    from repro_torch.configs import PAPER_FULL
+    from repro_torch.sim import FleetConfig
+
+    base = PAPER_FULL._replace(agg_refresh_steps=12)
+    if capacities is None:
+        capacities = tuple(round(f * PAPER_FULL.capacity, 1)
+                           for f in FLEET_FRACS)
+        base = base._replace(max_slots=PAPER_FULL.max_slots // 2)
+    if steps is not None:
+        base = base._replace(horizon_hours=steps * base.dt)
+    return FleetConfig(base=base, capacities=capacities)
+
+
+def check_fleet_invariants(name, fcfg, m, accept, assign, cascade=False):
+    """tests/test_fleet.py's invariants on one fleet run: no cluster over its
+    capacity, alive = accepted - overflow - departed, the fleet fields the
+    reductions of ``per_cluster``, decisions only in the target cluster;
+    under the cascade every routed arrival admitted and ``rejected_by_all``
+    the valid arrivals routed nowhere."""
+    import numpy as np
+    import torch
+
+    pc = m.per_cluster
+    caps = np.asarray(fcfg.capacities, np.float32)
+    peaks = pc.util_trace.cpu().numpy().max(axis=-1)
+    if not (peaks <= caps + 1e-3).all():
+        raise AssertionError(f"{name}: cluster peaks {peaks} over {caps}")
+    if not torch.equal(pc.alive_end, pc.arrivals_accepted - pc.slot_overflow
+                       - pc.n_departed):
+        raise AssertionError(f"{name}: alive != accepted - overflow - "
+                             "departed")
+    total = lambda x: float(x.sum())
+    for field in ("failed_requests", "total_requests", "arrivals_accepted",
+                  "slot_overflow"):
+        if float(getattr(m, field)) != total(getattr(pc, field)):
+            raise AssertionError(f"{name}: {field} is not the clusters' sum")
+    if float(m.arrivals_rejected) != total(pc.arrivals_rejected) + float(
+            m.rejected_by_all):
+        raise AssertionError(f"{name}: rejections not accounted for")
+    util = float((pc.utilization.cpu().double() * torch.tensor(
+        caps, dtype=torch.float64)).sum() / caps.sum())
+    if not math.isclose(float(m.utilization), util, rel_tol=1e-5):
+        raise AssertionError(f"{name}: utilization {float(m.utilization)} "
+                             f"against the clusters' {util}")
+    if not torch.allclose(m.util_trace, pc.util_trace.sum(dim=-2),
+                          rtol=1e-6):
+        raise AssertionError(f"{name}: util_trace is not the clusters' sum")
+    acc, asg = accept.cpu().numpy(), assign.cpu().numpy()
+    n_c = len(caps)
+    routed = asg[..., None, :] == np.arange(n_c)[:, None]
+    if (acc & ~routed).any():
+        raise AssertionError(f"{name}: a cluster decided another's arrival")
+    if cascade:
+        if not np.array_equal(acc, routed):
+            raise AssertionError(f"{name}: a routed arrival was refused")
+        # the cascade sends the invalid lanes nowhere too
+        n_valid = float(m.arrivals_accepted) + float(m.arrivals_rejected)
+        if float(m.rejected_by_all) != float((asg == n_c).sum()) - (
+                asg.size - n_valid):
+            raise AssertionError(f"{name}: rejected_by_all miscounted")
+    return float(m.rejected_by_all)
+
+
+def fleet_step_profile(fcfg_of, router, policy):
+    """(kernels a step, device busy ms a step, idle share, host ms a step)
+    of fleet steps, from torch.profiler over runs of FLEET_PROFILE_STEPS
+    and twice as many steps (their difference: the set-up cancels)."""
+    from repro_torch.core import SECOND
+    from repro_torch.sim import make_fleet_run
+
+    out = {}
+    for steps in (FLEET_PROFILE_STEPS, 2 * FLEET_PROFILE_STEPS):
+        run = make_fleet_run(fcfg_of(steps), geometric_grid_full(), SECOND,
+                             router=router, device=DEVICE)
+        run(2018, policy)                      # warm
+        out[steps] = profile_device(lambda: run(2018, policy))[:3]
+    (w1, b1, k1), (w2, b2, k2) = out[FLEET_PROFILE_STEPS], out[
+        2 * FLEET_PROFILE_STEPS]
+    n = FLEET_PROFILE_STEPS
+    return (k2 - k1) / n, (b2 - b1) / n, 1.0 - (b2 - b1) / (w2 - w1), \
+        (w2 - w1) / n
+
+
+def check_fleet_aggregate(records):
+    """Phase 12, the aggregate as the fleet runs it: R = 4 and R = 96 slot
+    tables of 4,096 slots (one fleet, a batch of 24 fleets) against the
+    plain version and R one-run launches; ``paper_cascade``'s grid in
+    chunks against the plain version and each chunk against launches over
+    at most 256 points; one launch (one CUDA kernel) a fleet refresh."""
+    import torch
+    from repro_torch.core import AZURE_PRIORS, SECOND, paper_cascade
+    from repro_torch.core.belief import GammaBelief
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.kernels.moment_curves import ops
+    from repro_torch.kernels.moment_curves import ref as R
+    from repro_torch.sim import make_admission_core
+
+    d, n, nd = 4096, 48, 24
+    rec = records["moment_curves_agg_belief"]
+    rec["fleet"] = {}
+    for runs in (4, 96):
+        bel, cores, alive, _, (t, idx, frac, _) = belief_case(
+            d, n, nd, 40 + runs, DEVICE, runs)
+        args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+        singles = [(GammaBelief(*(x[r] for x in bel)), cores[r], alive[r],
+                    t, idx, frac, nd, AZURE_PRIORS) for r in range(runs)]
+        kern = lambda: K.moment_curves_agg_belief(*args)
+        plain = lambda: R.moment_curves_agg_belief_ref(*args)
+        el, vl = kern()
+        want_el, want_vl = plain()
+        torch.testing.assert_close(el, want_el, **TOL_EL)
+        torch.testing.assert_close(vl, want_vl, **TOL_VL)
+        for r, one_args in enumerate(singles):
+            one = K.moment_curves_agg_belief(*one_args)
+            if not (torch.equal(one[0], el[r]) and torch.equal(one[1],
+                                                               vl[r])):
+                raise AssertionError(f"fleet aggregate R={runs}: table {r} "
+                                     "differs from its one-run launch")
+        b_ms, b_by = bound_runs(runs, d, n, nd)
+        timed = dict(
+            ms=event_ms(kern), device_ms=graph_ms(kern, reps=20),
+            one_run_launches_device_ms=graph_ms(
+                lambda: [K.moment_curves_agg_belief(*a) for a in singles],
+                reps=max(2, 192 // runs)),
+            plain_ms=event_ms(plain, reps=10, warm=2), bound_ms=b_ms,
+            bound_by=b_by,
+            max_abs_err=max(float((el - want_el).abs().max()),
+                            float((vl - want_vl).abs().max())),
+            shape=dict(R=runs, D=d, N=n, ND=nd))
+        rec["fleet"][f"R={runs}"] = timed
+        log(f"fleet aggregate, R={runs} tables of D={d} (N={n}): "
+            f"{timed['ms']:.4f} ms a call ({timed['device_ms']:.4f} ms on "
+            f"the device; {runs} one-run launches "
+            f"{timed['one_run_launches_device_ms']:.4f}), plain "
+            f"{timed['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}), max "
+            f"abs err {timed['max_abs_err']:.3e}; equal to one-run launches "
+            "bit for bit")
+        del want_el, want_vl
+
+    # paper_cascade's grid, in chunks of 256
+    grid = paper_cascade(device=DEVICE)
+    n_c = grid.shape[0]
+    chunks = K.agg_chunks(n_c)
+    bel, cores, alive, _, _ = belief_case(d, 12, nd, 77, DEVICE)
+    t, idx, frac, _ = ops.curve_grid(grid, nd)
+    args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+    before = K.LAUNCHES["moment_curves_agg_belief"]
+    el, vl = K.moment_curves_agg_belief(*args)
+    if K.LAUNCHES["moment_curves_agg_belief"] - before != len(chunks):
+        raise AssertionError("chunked aggregate: not one launch a chunk")
+    want_el, want_vl = R.moment_curves_agg_belief_ref(*args)
+    torch.testing.assert_close(el, want_el, **TOL_EL)
+    torch.testing.assert_close(vl, want_vl, **TOL_VL)
+    used = max(tolerance_used(el, want_el, TOL_EL),
+               tolerance_used(vl, want_vl, TOL_VL))
+    windows = [(0, 1), (0, 256), (200, 300), (250, 256), (1000, 1150),
+               (n_c - 256, n_c), (n_c - 7, n_c)]
+    windows += [(a, b) for a, b in chunks]
+    for a, b in windows:
+        part = K._agg_belief_launch(bel, cores, alive, t[a:b], idx[a:b],
+                                    frac[a:b], t, nd, AZURE_PRIORS)
+        if not (torch.equal(part[0], el[a:b]) and torch.equal(part[1],
+                                                              vl[a:b])):
+            raise AssertionError(f"chunked aggregate: points [{a}, {b}) "
+                                 "differ from a launch over them")
+    residency = {m: K.agg_residency(True, m)["ctas_per_sm"]
+                 for m in sorted({48, 256, chunks[-1][1] - chunks[-1][0]})}
+    kern = lambda: K.moment_curves_agg_belief(*args)
+    plain = lambda: R.moment_curves_agg_belief_ref(*args)
+    b_ms, b_by = bound_runs(1, d, n_c, nd)
+    timed = dict(ms=event_ms(kern, reps=20), device_ms=graph_ms(kern, reps=5),
+                 plain_ms=event_ms(plain, reps=5, warm=1), bound_ms=b_ms,
+                 bound_by=b_by, launches_a_call=len(chunks),
+                 max_abs_err=max(float((el - want_el).abs().max()),
+                                 float((vl - want_vl).abs().max())),
+                 shape=dict(R=1, D=d, N=n_c, ND=nd))
+    rec["fleet"]["paper_cascade"] = timed
+    log(f"chunked aggregate at paper_cascade's N={n_c} (D={d}): "
+        f"{len(chunks)} launches a call, matches its plain version (largest "
+        f"share of the tolerance used {used:.3e}, max abs err "
+        f"{timed['max_abs_err']:.3e}); {len(windows)} windows of <= 256 "
+        f"points equal bit for bit to launches over them; CTAs an SM by N "
+        f"{residency}; {timed['ms']:.4f} ms a call ({timed['device_ms']:.4f} "
+        f"ms on the device), plain {timed['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by})")
+    del want_el, want_vl
+
+    # one launch a fleet refresh: a fleet's 4 tables, a batch's 96
+    fcfg = fleet_config()
+    core = make_admission_core(fcfg.base, geometric_grid_full(), SECOND,
+                               device=DEVICE)
+    for lead in ((4,), (24, 4)):
+        runs = math.prod(lead)
+        bel, cores, alive, _, _ = belief_case(d, n, nd, 90 + runs, DEVICE,
+                                              runs)
+        cs = core.init(lead)
+        view = lambda x: x.view(*lead, d)
+        cs = cs._replace(slots=cs.slots._replace(
+            bel=GammaBelief(*map(view, bel)), cores=view(cores),
+            alive=view(alive)))
+        names = kernels_of_one_call(lambda: core.refresh_aggregates(cs))
+        if len(names) != 1 or "agg_kernel" not in names[0]:
+            raise AssertionError(f"a fleet refresh of {lead} tables ran "
+                                 f"{names}")
+    log("a fleet refresh is one CUDA kernel in a CUDA graph of it, for 4 "
+        "tables (one fleet) and 96 (a batch of 24 fleets)")
+
+
+def geometric_grid_full():
+    from repro_torch.core import geometric_grid
+
+    return geometric_grid(6.0, 3 * 3 * 365 * 24.0, 48, device=DEVICE)
+
+
+def fleet_path(records, single):
+    """Phase 12: the routed fleet at PAPER_FULL (make_fleet_run, the four
+    routers, a batch of 24 fleet runs, the aggregate as the fleet runs it,
+    the fleet engine)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PAPER_FULL, PAPER_TABLE2
+    from repro_torch.core import SECOND, fleet_policy
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.serve import OnlineAdmissionEngine
+    from repro_torch.sim import (ROUTERS, draw_arrival_stream, make_fleet_run,
+                                 split_seeds, stream_config)
+    from repro_torch.sim.simulator import _steps
+
+    rho = PAPER_TABLE2["second_rho"]
+    grid = geometric_grid_full()
+    launches_fleet = {}
+
+    def launches_of(name, n_steps):
+        got = dict(K.LAUNCHES)
+        want = dict.fromkeys(got, 0)
+        want.update(moment_curves_belief=n_steps,
+                    moment_curves_agg_belief=n_steps // 12)
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, want {want}")
+        launches_fleet[name] = got
+
+    # 1. a fleet of one is make_run: phase 4's decisions, bit for bit
+    one = fleet_config(capacities=(PAPER_FULL.capacity,))
+    run = make_fleet_run(one, grid, SECOND, record_decisions=True,
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    m, accept, _ = run(2018, fleet_policy(SECOND, capacities=one.capacities,
+                                          rho=rho))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_of("fleet of one", one.base.n_steps)
+    want = single["second"]
+    if not torch.equal(accept[:, 0], want["accept"]):
+        raise AssertionError("fleet of one: decisions differ from phase 4's")
+    for field in want["metrics"]._fields:
+        got = getattr(m.per_cluster, field)
+        got = got[..., 0, :] if got.ndim > 1 else got[0]
+        if not torch.equal(got, getattr(want["metrics"], field)):
+            raise AssertionError(f"fleet of one: {field} differs from "
+                                 "phase 4's")
+    log(f"fleet of one at PAPER_FULL: {one.base.n_steps / wall:.1f} steps/s "
+        f"(phase 4's make_run {want['steps_per_s']:.1f}); decisions "
+        "[T, 1, A] and metrics equal phase 4's bit for bit")
+
+    # 2. the four routers on the four-cluster fleet
+    caps = fleet_config().capacities
+    policy = fleet_policy(SECOND, capacities=caps, rho=rho)
+    runs = {}
+    for name in ("least_utilized", "power_of_two", "random", "cascade"):
+        fcfg = fleet_config(FLEET_ROUTER_STEPS[name])
+        router = ROUTERS[name]()
+        run = make_fleet_run(fcfg, grid, SECOND, router=router,
+                             record_decisions=True, device=DEVICE)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        m, accept, assign = run(2018, policy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_steps = fcfg.base.n_steps
+        launches_of(name, n_steps)
+        for field in m:
+            if not all(bool(torch.isfinite(x).all()) for x in
+                       (field if isinstance(field, tuple) else (field,))):
+                raise AssertionError(f"{name}: non-finite metrics")
+        rej_all = check_fleet_invariants(name, fcfg, m, accept, assign,
+                                         cascade=name == "cascade")
+        kernels, busy, idle, host_ms = fleet_step_profile(
+            lambda s: fleet_config(s), router, policy)
+        util = m.per_cluster.utilization.cpu().numpy()
+        runs[name] = dict(steps=n_steps, steps_per_s=n_steps / wall,
+                          kernels_a_step=kernels, busy_ms_a_step=busy,
+                          idle_share=idle, host_ms_a_step=host_ms,
+                          utilization=float(m.utilization),
+                          cluster_utilization=util.tolist(),
+                          failure_rate=float(m.failure_rate),
+                          rejected_by_all=rej_all,
+                          launches=launches_fleet[name])
+        log(f"fleet, {name}, {len(caps)} clusters {caps}, {n_steps} steps: "
+            f"{n_steps / wall:.1f} steps/s; {kernels:.2f} CUDA kernels a "
+            f"step, device busy {busy:.4f} ms a step, idle share "
+            f"{idle:.3f} (profiler on, {host_ms:.3f} ms a step); "
+            f"utilization {float(m.utilization):.4f} (clusters "
+            f"{np.round(util, 4).tolist()}), failure rate "
+            f"{float(m.failure_rate):.3e}, rejected by all {rej_all:.0f}; "
+            f"aggregate launches {launches_fleet[name]['moment_curves_agg_belief']}"
+            f" (one a refresh for the {len(caps)} clusters), row launches "
+            f"{launches_fleet[name]['moment_curves_belief']}; invariants hold")
+
+    # 3. a batch of 24 fleet runs (96 tables an aggregate launch)
+    fcfg = fleet_config(FLEET_BATCH_STEPS)
+    run = make_fleet_run(fcfg, grid, SECOND, record_decisions=True,
+                         device=DEVICE)
+    seeds = split_seeds(2018, 23)
+    seeds.insert(5, 2018)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    mb, accb, asgb = run(seeds, policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_of("batch of 24", FLEET_BATCH_STEPS)
+    alone = run(2018, policy)
+    for field in alone[0]._fields:
+        got, ref = getattr(mb, field), getattr(alone[0], field)
+        pairs = zip(got, ref) if isinstance(ref, tuple) else [(got, ref)]
+        for g, r in pairs:
+            if not torch.equal(g[5], r):
+                raise AssertionError(f"fleet batch run 2018: {field} "
+                                     "differs from the run alone")
+    if not (torch.equal(accb[5], alone[1]) and torch.equal(asgb[5],
+                                                           alone[2])):
+        raise AssertionError("fleet batch run 2018: decisions differ")
+    rate = len(seeds) * FLEET_BATCH_STEPS / wall
+    log(f"a batch of {len(seeds)} fleet runs, {FLEET_BATCH_STEPS} steps: "
+        f"{wall:.2f} s, {rate:.1f} runs x steps/s ({FLEET_BATCH_STEPS / wall:.1f}"
+        f" batched steps/s); aggregate launches "
+        f"{launches_fleet['batch of 24']['moment_curves_agg_belief']} (each "
+        f"over {len(seeds) * len(caps)} tables); run 2018 equals the fleet "
+        f"run alone bit for bit over {FLEET_BATCH_STEPS} steps")
+
+    # 4. the aggregate as the fleet runs it
+    check_fleet_aggregate(records)
+
+    # 5. the fleet engine ticked by make_fleet_run's generators
+    gen = torch.Generator(device=DEVICE).manual_seed(2018)
+    stream = draw_arrival_stream(gen, stream_config(fcfg))
+    eng = OnlineAdmissionEngine(fcfg, grid, SECOND, policy, micro_batch=8,
+                                device=DEVICE)
+    lanes = np.arange(fcfg.base.max_arrivals)
+    n_arr = stream.n_arrivals.cpu().numpy()
+    accepts = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for t, slice_t in enumerate(_steps(stream)):
+        eng.tick(gen=gen)
+        accepts.append(eng.decide_slice(slice_t, lanes < n_arr[t]))
+    me = eng.metrics()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_of("engine", FLEET_BATCH_STEPS)
+    if not np.array_equal(np.stack(accepts),
+                          alone[1].cpu().numpy().any(axis=1)):
+        raise AssertionError("fleet engine: decisions differ from "
+                             "make_fleet_run's")
+    for field in me._fields:
+        got, ref = getattr(me, field), getattr(alone[0], field)
+        pairs = zip(got, ref) if isinstance(ref, tuple) else [(got, ref)]
+        if not all(torch.equal(g, r) for g, r in pairs):
+            raise AssertionError(f"fleet engine: {field} differs from "
+                                 "make_fleet_run's")
+    log(f"fleet engine ({len(caps)} clusters, least utilized, micro-batch 8, "
+        f"decide_slice) for {FLEET_BATCH_STEPS} ticks: "
+        f"{FLEET_BATCH_STEPS / wall:.1f} ticks/s, {eng.decisions} decisions, "
+        f"{eng.decisions / wall:.1f} decisions/s; decisions and FleetMetrics "
+        "equal make_fleet_run's bit for bit")
+    for name in ("moment_curves_belief", "moment_curves_agg_belief"):
+        records[name]["launches_fleet"] = {
+            k: v[name] for k, v in launches_fleet.items()}
+    records["moment_curves_agg_belief"]["fleet_runs"] = runs
+
+
 def main():
     import torch
 
@@ -2081,6 +2508,9 @@ def main():
 
     with phase("11. online engine at PAPER_FULL"):
         engine_path(records, single)
+
+    with phase("12. the routed fleet at PAPER_FULL"):
+        fleet_path(records, single)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

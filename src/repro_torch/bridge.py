@@ -1,7 +1,8 @@
 """State, inputs and weights carried between the JAX package and the port.
 
-The admission system has no weights: what crosses is state and inputs, as
-NamedTuples. ``from_reference(tree, device)`` takes one of the JAX package's
+The admission system has no weights: what crosses is state, inputs and
+configurations, as NamedTuples (a fleet's ``FleetConfig``, its [C]
+policies and [C]-leading core states and ``FleetMetrics`` too). ``from_reference(tree, device)`` takes one of the JAX package's
 NamedTuples whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray,
 x)``) and returns the port's NamedTuple of the same name, with tensors on
 ``device``. The two are matched by class name and ``_fields``; the LM's
@@ -23,12 +24,17 @@ from .core.policies import PolicyParams
 from .core.processes import (DeploymentParams, PopulationPriors,
                              PseudoObservations, StepEvents)
 from .models.layers import KVCache
-from .sim.core import ArrivalStream, CoreState, SimState
+from .obs.counters import TelemetryState
+from .sim.core import (ArrivalStream, CoreState, FleetConfig, SimConfig,
+                       SimState)
+from .sim.routing import RouteContext
+from .sim.simulator import FleetMetrics, RunMetrics
 
 PORTED = {cls.__name__: cls for cls in (
     GammaBelief, DeploymentParams, ArrivalStream, SimState, CoreState,
     StepEvents, PolicyParams, PopulationPriors, MomentCurves, KVCache,
-    PseudoObservations)}
+    PseudoObservations, SimConfig, FleetConfig, RunMetrics, FleetMetrics,
+    RouteContext, TelemetryState)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -56,8 +62,10 @@ def from_reference(tree, device="cpu"):
         return cls(*(from_reference(x, device) for x in tree))
     if isinstance(tree, (np.ndarray, np.generic)):
         return _tensor(tree).to(device)
-    if tree is None or isinstance(tree, (bool, int, float)):
+    if tree is None or isinstance(tree, (bool, int, float, str)):
         return tree
+    if type(tree) is tuple:       # a configuration's tuple of numbers
+        return tuple(from_reference(x, device) for x in tree)
     raise TypeError(f"cannot carry a {type(tree).__name__} leaf across; "
                     "convert the reference's arrays with np.asarray first")
 

@@ -22,8 +22,8 @@ from .moments import (MomentCurves, aggregate_moment_curves,
                       moment_curves_fused)
 from .policies import (FIRST, SECOND, ZEROTH, DecisionDiag, PolicyParams,
                        admit_sequential, admit_sequential_verbose, decide,
-                       decide_scored, geometric_grid, is_safe, make_policy,
-                       tune_threshold)
+                       decide_scored, fleet_policy, geometric_grid, is_safe,
+                       make_policy, paper_cascade, tune_threshold)
 from . import pomdp, pricing
 
 __all__ = [
@@ -37,6 +37,7 @@ __all__ = [
     "moment_curves_discrete", "moment_curves_discrete_naive",
     "moment_curves_fused", "ZEROTH", "FIRST", "SECOND", "DecisionDiag",
     "PolicyParams", "admit_sequential", "admit_sequential_verbose", "decide",
-    "decide_scored", "geometric_grid", "is_safe", "make_policy",
+    "decide_scored", "fleet_policy", "geometric_grid", "is_safe",
+    "make_policy", "paper_cascade",
     "tune_threshold", "pomdp", "pricing",
 ]

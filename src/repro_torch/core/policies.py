@@ -62,22 +62,90 @@ def make_policy(kind, *, threshold=0.0, rho=0.0, capacity, marginal=False,
     )
 
 
+def fleet_policy(kind, *, capacities, threshold=0.0, rho=0.0,
+                 marginal=False, device=None) -> PolicyParams:
+    """PolicyParams broadcast over the cluster axis of a heterogeneous fleet.
+
+    Every field gets a trailing ``[C]`` cluster axis. ``threshold`` is a
+    *fleet-total* core budget split across clusters in proportion to
+    capacity, so one scalar tunes heterogeneous per-cluster thresholds;
+    ``rho`` (the Cantelli bound, scale-free) and the marginal flag are
+    shared across clusters. ``threshold`` and ``rho`` may also be [B]
+    tensors (a batch of candidate policies, as calibration builds them):
+    every leaf is then [B, C].
+    """
+    caps = torch.as_tensor(capacities, dtype=F32, device=device)
+    n_c = caps.shape[0]
+    frac = caps / torch.sum(caps)
+    threshold = torch.as_tensor(threshold, dtype=F32, device=device)
+    rho = torch.as_tensor(rho, dtype=F32, device=device)
+    lead = torch.broadcast_shapes(threshold.shape, rho.shape)
+    shape = (*lead, n_c)
+    full = lambda v, dtype=F32: torch.full(shape, v, dtype=dtype,
+                                           device=device)
+    return PolicyParams(
+        kind=full(int(kind), torch.int32),
+        threshold=(threshold[..., None] * frac).expand(shape).contiguous(),
+        rho=rho[..., None].expand(shape).contiguous(),
+        capacity=caps.expand(shape).contiguous(),
+        marginal_eps=full(1e-5 if marginal else 0.0),
+    )
+
+
+def _linspace(start: float, stop: float, n: int, device=None
+              ) -> torch.Tensor:
+    """``n`` points from ``start`` to ``stop`` in float32, interpolated as
+    ``jnp.linspace`` does: start*(1-s) + stop*s with s = i/(n-1), the stop
+    point appended."""
+    start = torch.tensor(start, dtype=F32, device=device)
+    stop = torch.tensor(stop, dtype=F32, device=device)
+    if n == 1:
+        return start[None]
+    step = (torch.arange(n - 1, dtype=F32, device=device)
+            / torch.tensor(n - 1, dtype=F32, device=device))
+    return torch.cat([start * (1 - step) + stop * step, stop[None]])
+
+
 def geometric_grid(t_min: float = 1.0, t_max: float = 3 * 365 * 24.0,
                    n: int = 48, device=None) -> torch.Tensor:
     """Geometric horizon grid (hours), float32, from 1h..3y by default.
 
     The log-spaced points are interpolated in float32 exactly as
-    ``jnp.linspace`` does (start*(1-s) + stop*s with s = i/(n-1), the stop
-    point appended), so both packages build the same grid.
+    ``jnp.linspace`` does, so both packages build the same grid.
     """
-    start = torch.tensor(math.log(t_min), dtype=F32, device=device)
-    stop = torch.tensor(math.log(t_max), dtype=F32, device=device)
+    return torch.exp(_linspace(math.log(t_min), math.log(t_max), n, device))
+
+
+def paper_cascade(n_per: int = 600, device=None) -> torch.Tensor:
+    """The paper's §5.2 subpolicy cascade: 24h / 1w / 1mo / 1y / 3y horizons,
+    each discretized into ``n_per`` uniform steps; returned as one sorted
+    grid of its unique float32 points (accept iff the condition holds at
+    every point = all subpolicies accept). The aggregate kernel takes it in
+    chunks (``kernels.moment_curves.kernel.agg_chunks``)."""
+    horizons = [24.0, 7 * 24.0, 30 * 24.0, 365 * 24.0, 3 * 365 * 24.0]
+    grids = [_linspace_as_compiled(h / n_per, h, n_per, device)
+             for h in horizons]
+    return torch.unique(torch.cat(grids), sorted=True)
+
+
+def _linspace_as_compiled(start: float, stop: float, n: int, device=None
+                          ) -> torch.Tensor:
+    """``jnp.linspace(start, stop, n)`` in float32 as XLA compiles it on the
+    CPU: the division by n-1 becomes a multiply by r = 1/(n-1), stop*(i r)
+    is reassociated to i*(stop r), and the final add is fused with that
+    product (one rounding, emulated in float64, where the product is
+    exact). Which of the cascade's points coincide depends on these bits,
+    so ``paper_cascade`` has the JAX package's length only with them."""
+    start = torch.tensor(start, dtype=F32, device=device)
+    stop = torch.tensor(stop, dtype=F32, device=device)
     if n == 1:
-        return torch.exp(start)[None]
-    step = (torch.arange(n - 1, dtype=F32, device=device)
-            / torch.tensor(n - 1, dtype=F32, device=device))
-    logs = torch.cat([start * (1 - step) + stop * step, stop[None]])
-    return torch.exp(logs)
+        return start[None]
+    r = (torch.tensor(1.0, dtype=F32, device=device)
+         / torch.tensor(n - 1, dtype=F32, device=device))
+    i = torch.arange(n - 1, dtype=F32, device=device)
+    head = start * (1.0 - i * r)
+    out = (i.double() * (stop * r).double() + head.double()).to(F32)
+    return torch.cat([out, stop[None]])
 
 
 # ---------------------------------------------------------------------------

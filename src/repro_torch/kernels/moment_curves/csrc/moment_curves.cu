@@ -76,6 +76,12 @@
 //     (run, output) is added in the same lane order. The one-run launches
 //     are the case R = 1 of the same kernel, so a run's result has the bits
 //     of a one-run launch on its rows.
+//   * Grids of more than kAggMaxN points (the paper's 5 x 600-point
+//     cascade): the launcher runs one launch a chunk of at most kAggMaxN
+//     points, each on its slice of t / idx / frac. The checkpoint spacing
+//     is the whole grid's (t_last points at its last point), and a point's
+//     sum order depends on neither the chunk nor N, so a chunk's columns
+//     have the bits of a launch over any grid that holds them.
 //
 // Build without --use_fast_math: the closed forms rely on accurate log1pf,
 // expm1f and lgammaf, and the pack on IEEE division.
@@ -474,8 +480,9 @@ template <class Loader>
 __global__ void __launch_bounds__(kAggWarps * 32, 1)
 agg_kernel(Loader ld, const float* __restrict__ t,
            const int* __restrict__ idx, const float* __restrict__ frac,
-           int runs, int d, int n, int nd, int g, float* __restrict__ partial,
-           float* __restrict__ out, int slot) {
+           const float* __restrict__ t_last, int runs, int d, int n, int nd,
+           int g, float* __restrict__ partial, float* __restrict__ out,
+           int slot) {
   extern __shared__ float acc_s[];                  // [kAggWarps][2n]
   __shared__ float raw_s[kAggRowsPerCta * kCols];
   __shared__ float rows_s[kAggRowsPerCta][kCols];
@@ -490,7 +497,7 @@ agg_kernel(Loader ld, const float* __restrict__ t,
   float* acc = acc_s + (size_t)warp * 2 * n;
   for (int k = lane; k < 2 * n; k += 32) acc[k] = 0.0f;
 
-  const float w = t[n - 1] / (float)nd;
+  const float w = *t_last / (float)nd;
   const int stride = g * kAggRowsPerCta;
   // the CTA's place: item `item`, the block of rows from row0 of its run
   int item = blockIdx.x;
@@ -618,11 +625,13 @@ int launch_rows(const Loader& ld, const float* t, const int* idx,
 }
 
 // `runs` tables of d rows on a virtual grid of g CTAs each, run by `ctas`
-// physical CTAs (one wave: at most the CTAs the card holds at once).
+// physical CTAs (one wave: at most the CTAs the card holds at once). t_last
+// points at the whole grid's last point (t + n - 1 unless t is a chunk).
 template <class Loader>
 int launch_agg(const Loader& ld, const float* t, const int* idx,
-               const float* frac, int runs, int d, int n, int nd, int g,
-               int ctas, float* partial, float* out, int slot, void* stream) {
+               const float* frac, const float* t_last, int runs, int d, int n,
+               int nd, int g, int ctas, float* partial, float* out, int slot,
+               void* stream) {
   cudaError_t err = agg_prepare<Loader>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -635,8 +644,8 @@ int launch_agg(const Loader& ld, const float* t, const int* idx,
   attr.val.cooperative = 1;                   // grid barrier needs it
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, agg_kernel<Loader>, ld, t, idx, frac, runs,
-                           d, n, nd, g, partial, out, slot);
+  err = cudaLaunchKernelEx(&cfg, agg_kernel<Loader>, ld, t, idx, frac, t_last,
+                           runs, d, n, nd, g, partial, out, slot);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -709,26 +718,29 @@ int mc_rows_belief(const float* mu_a, const float* mu_b, const float* lam_a,
 int mc_agg(const float* params, const float* t, const int* idx,
            const float* frac, int d, int n, int nd, int grid, float* partial,
            float* out, int slot, void* stream) {
-  return launch_agg(PackedRow{params}, t, idx, frac, 1, d, n, nd, grid, grid,
-                    partial, out, slot, stream);
+  return launch_agg(PackedRow{params}, t, idx, frac, t + n - 1, 1, d, n, nd,
+                    grid, grid, partial, out, slot, stream);
 }
 
 // Masked aggregates from the belief columns and the bool ALIVE column, of
 // `runs` runs in one launch: the columns are [runs, d] (run r's rows at
 // r d; one run: runs = 1), out [runs, 2n] (each run's EL, then its VL);
 // partial is scratch of runs 2 n g floats. g is a one-run launch's grid for
-// d rows; ctas <= runs g and <= the CTAs the card holds at once.
+// d rows; ctas <= runs g and <= the CTAs the card holds at once. t, idx,
+// frac may be a chunk of n <= kAggMaxN points of a longer grid whose last
+// point t_last points at (t + n - 1 for a whole grid).
 int mc_agg_belief(const float* mu_a, const float* mu_b, const float* lam_a,
                   const float* lam_b, const float* sig_a, const float* sig_b,
                   const float* cores, const unsigned char* alive, float nu,
                   float nu_m1, float two_nu, float two_nu_m2, float delta,
-                  const float* t, const int* idx, const float* frac, int runs,
-                  int d, int n, int nd, int g, int ctas, float* partial,
-                  float* out, int slot, void* stream) {
+                  const float* t, const int* idx, const float* frac,
+                  const float* t_last, int runs, int d, int n, int nd, int g,
+                  int ctas, float* partial, float* out, int slot,
+                  void* stream) {
   return launch_agg(belief_row(mu_a, mu_b, lam_a, lam_b, sig_a, sig_b, cores,
                                alive, nu, nu_m1, two_nu, two_nu_m2, delta),
-                    t, idx, frac, runs, d, n, nd, g, ctas, partial, out, slot,
-                    stream);
+                    t, idx, frac, t_last, runs, d, n, nd, g, ctas, partial,
+                    out, slot, stream);
 }
 
 // The aggregate kernel's residency on the current device at n grid points

@@ -10,7 +10,10 @@ Each kernel comes in two forms, by how a row's parameters arrive:
   * ``moment_curves_agg_belief`` -> (EL, VL), each [N]      (sum over rows
     weighted by ``alive``: the cluster aggregate); given R runs' slot
     tables (columns [R, D]), each [R, N] from one launch, run r's with the
-    bits of a launch on its rows alone
+    bits of a launch on its rows alone. A grid of more than ``AGG_MAX_N``
+    points goes in chunks of at most ``AGG_MAX_N``, one launch a chunk,
+    each chunk's columns with the bits of a launch over any grid that
+    holds them
 
 * packed form (the TPU kernel's interface): packed rows ``params [D, 16]``
   (column layout in ``ref.py``).
@@ -80,9 +83,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mc_rows.argtypes = [_P, *grids, _P, _P, _P]
     lib.mc_rows_belief.argtypes = [*cols, *consts, *grids, _P, _P, _P]
     lib.mc_agg.argtypes = [_P, *grids, _I, _P, _P, _I, _P]
-    # t, idx, frac, runs, d, n, nd, g, ctas
-    lib.mc_agg_belief.argtypes = [*cols, _P, *consts, _P, _P, _P, *[_I] * 6,
-                                  _P, _P, _I, _P]
+    # t, idx, frac, t_last, runs, d, n, nd, g, ctas
+    lib.mc_agg_belief.argtypes = [*cols, _P, *consts, _P, _P, _P, _P,
+                                  *[_I] * 6, _P, _P, _I, _P]
     lib.mc_agg_capacity.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
     lib.mc_empty.argtypes = [_P]
     for fn in (lib.mc_rows, lib.mc_rows_belief, lib.mc_agg, lib.mc_agg_belief,
@@ -203,6 +206,12 @@ def _check_agg_n(n: int) -> None:
                          "grid points")
 
 
+def agg_chunks(n: int) -> list:
+    """The (start, stop) grid-point ranges of the aggregate's launches
+    over ``n`` points: chunks of ``AGG_MAX_N``, the last one shorter."""
+    return [(k, min(k + AGG_MAX_N, n)) for k in range(0, n, AGG_MAX_N)]
+
+
 def _stream(dev: torch.device) -> int:
     """The handle of ``dev``'s current stream: what
     ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building a
@@ -263,23 +272,43 @@ def moment_curves_agg_belief(bel: GammaBelief, cores: torch.Tensor,
     [N]; R runs' columns [R, D] give each [R, N] from one launch, run r's
     with the bits of a launch on its rows alone. The scratch for the CTA
     partials ([R, 2N, g] floats, g the one-run grid) is allocated with the
-    output at every call."""
+    output at every call.
+
+    N > ``AGG_MAX_N``: one launch a chunk of ``agg_chunks(N)``, each on its
+    slice of ``t``/``idx``/``frac`` with the whole grid's checkpoint
+    spacing (``t[-1] / nd``); the chunks' columns are joined after. The
+    plain version on the CPU takes any N in one call."""
     n = _check_belief(bel, cores, alive, t, idx, frac, nd)
-    _check_agg_n(n)
     dev = cores.device
     if dev.type == "cpu":
         return moment_curves_agg_belief_ref(bel, cores, alive, t, idx, frac,
                                             nd, priors)
+    if n <= AGG_MAX_N:
+        return _agg_belief_launch(bel, cores, alive, t, idx, frac, t, nd,
+                                  priors)
+    parts = [_agg_belief_launch(bel, cores, alive, t[a:b], idx[a:b],
+                                frac[a:b], t, nd, priors)
+             for a, b in agg_chunks(n)]
+    return tuple(torch.cat(x, dim=-1) for x in zip(*parts))
+
+
+def _agg_belief_launch(bel, cores, alive, t, idx, frac, t_grid, nd: int,
+                       priors):
+    """One aggregate launch over the checked inputs: ``t``/``idx``/``frac``
+    hold at most ``AGG_MAX_N`` points of the grid ``t_grid``, whose last
+    point sets the checkpoint spacing."""
     lib = _library()
+    dev, n = cores.device, t.shape[0]
     runs, d = (1, *cores.shape) if cores.ndim == 1 else cores.shape
     grid, resident = _agg_grid(dev, True, d, n)
     size = 2 * n * runs
     out = torch.empty(size * (1 + grid), dtype=F32, device=dev)
     stream, ptr = _stream(dev), out.data_ptr()
+    t_last = t_grid.data_ptr() + 4 * (t_grid.shape[0] - 1)
     _call(dev, lib.mc_agg_belief, *(x.data_ptr() for x in bel),
           cores.data_ptr(), alive.data_ptr(), *pack_constants(priors),
-          t.data_ptr(), idx.data_ptr(), frac.data_ptr(), runs, d, n, nd, grid,
-          min(runs * grid, resident), ptr + 4 * size, ptr,
+          t.data_ptr(), idx.data_ptr(), frac.data_ptr(), t_last, runs, d, n,
+          nd, grid, min(runs * grid, resident), ptr + 4 * size, ptr,
           _barrier_slot(dev.index, stream), stream)
     LAUNCHES["moment_curves_agg_belief"] += 1
     curves = out[:size].view(*cores.shape[:-1], 2, n)

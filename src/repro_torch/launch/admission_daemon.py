@@ -26,14 +26,19 @@ final metrics snapshot is logged before exit 0.
 ``--flush-slo-ms L`` switches from per-tick caller-driven flushing to the
 engine's deadline scheduler, which fires partial micro-batches before any
 pending request exceeds its L-millisecond decision SLO (misses surface as
-``repro_admission_deadline_misses_total`` on ``/metrics``). ``--fleet`` and
-``--shards`` are not ported yet (ROADMAP Queue A, item 5) and raise.
+``repro_admission_deadline_misses_total`` on ``/metrics``). ``--fleet
+C1,C2,...`` serves a routed fleet of clusters with those capacities (their
+sum replaces ``--capacity``), with a ``fleet_policy`` from the operating
+point: the fleet-total threshold split in proportion to capacity, rho
+shared; ``/metrics`` then carries per-cluster gauges. ``--shards`` is not
+ported yet (ROADMAP Queue A, item 5, the mesh) and raises.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.admission_daemon --hours 2000 \
       --capacity 4096 [--policy second|first|zeroth] \
       [--param RHO_OR_THRESHOLD] [--micro-batch 8] [--metrics-port 9109] \
-      [--throttle 0.05] [--flush-slo-ms 50] [--device cuda|cpu]
+      [--throttle 0.05] [--flush-slo-ms 50] [--fleet 8000,6000,4000,2000] \
+      [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ import time
 import numpy as np
 import torch
 
-from ..core import FIRST, SECOND, ZEROTH, geometric_grid, make_policy
+from ..core import (FIRST, SECOND, ZEROTH, fleet_policy, geometric_grid,
+                    make_policy)
 from ..obs import get_logger, set_level
 
 log = get_logger("launch.admission_daemon")  # stable name under python -m
@@ -69,10 +75,9 @@ def build_engine(args):
     draw the events from (seeded ``--seed``, as ``make_run``'s), and the
     policy parameter."""
     from ..serve import OnlineAdmissionEngine, default_policy_param
-    from ..sim import draw_arrival_stream, make_config
+    from ..sim import (FleetConfig, draw_arrival_stream, make_config,
+                       stream_config)
 
-    if getattr(args, "fleet", None):
-        raise NotImplementedError("--fleet " + _NOT_PORTED.format("fleet"))
     if getattr(args, "shards", None) not in (None, 1):
         raise NotImplementedError("--shards " + _NOT_PORTED.format("mesh"))
     kind_name = args.policy
@@ -89,16 +94,24 @@ def build_engine(args):
     if param is None:
         param = default_policy_param(kind_name, args.capacity,
                                      scale_name=args.scale)
-    pol = make_policy(kind, threshold=param, rho=param,
-                      capacity=base.capacity)
-    engine = OnlineAdmissionEngine(base, grid, kind, pol,
+    if getattr(args, "fleet", None):
+        caps = tuple(float(c) for c in args.fleet.split(","))
+        if abs(sum(caps) - args.capacity) > 1e-6:
+            base = base._replace(capacity=float(sum(caps)))
+        cfg = FleetConfig(base=base, capacities=caps)
+        pol = fleet_policy(kind, capacities=caps, threshold=param, rho=param)
+    else:
+        cfg = base
+        pol = make_policy(kind, threshold=param, rho=param,
+                          capacity=base.capacity)
+    engine = OnlineAdmissionEngine(cfg, grid, kind, pol,
                                    micro_batch=args.micro_batch,
                                    scale=args.scale,
                                    flush_slo_ms=getattr(args, "flush_slo_ms",
                                                         None),
                                    seed=args.seed, device=args.device)
     gen = torch.Generator(device=engine.device).manual_seed(args.seed)
-    stream = draw_arrival_stream(gen, base)
+    stream = draw_arrival_stream(gen, stream_config(cfg))
     return engine, stream, gen, param
 
 
@@ -189,8 +202,8 @@ def parse_args(argv=None):
                     help="threshold (zeroth/first, chips) or rho (second); "
                          "default: tuned operating point from BENCH_<scale>")
     ap.add_argument("--fleet", default=None, metavar="C1,C2,...",
-                    help="a fleet of clusters (not ported yet: ROADMAP "
-                         "Queue A, item 5)")
+                    help="serve a fleet of clusters with these capacities "
+                         "(overrides --capacity with their sum)")
     ap.add_argument("--scale", default="quick",
                     help="BENCH_<scale>.json supplying tuned operating "
                          "points and the measured agg-refresh K-curve")
@@ -222,9 +235,11 @@ def main(argv=None):
     set_level("INFO")  # the daemon is a CLI: its operational log is output
 
     engine, stream, gen, param = build_engine(args)
-    log.info("policy=%s param=%g capacity=%.0f chips single micro_batch=%d "
+    mode = f"fleet[{args.fleet}]" if args.fleet else "single"
+    log.info("policy=%s param=%g capacity=%.0f chips %s micro_batch=%d "
              "agg_refresh_K=%d telemetry=%s shards=%d flush_slo_ms=%s "
-             "device=%s", args.policy, param, args.capacity, engine.width,
+             "device=%s", args.policy, param, args.capacity, mode,
+             engine.width,
              engine.k_refresh, engine.base.telemetry, engine.n_shards,
              args.flush_slo_ms, engine.device)
     names = tuple(CHIPS_PER_REPLICA)

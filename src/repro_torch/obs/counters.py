@@ -39,7 +39,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..device import resolve_device
 
 F32 = torch.float32
 
@@ -107,11 +110,17 @@ class TelemetryState(NamedTuple):
         return self.scalars[..., I_STEPS_SINCE_REFRESH]
 
 
-def init_telemetry(runs: Optional[int] = None, device="cpu"
-                   ) -> TelemetryState:
-    """A fresh all-zero rider (of ``runs`` runs: a leading axis), every
-    leaf a distinct tensor."""
-    lead = () if runs is None else (runs,)
+def init_telemetry(runs=None, device="cuda") -> TelemetryState:
+    """A fresh all-zero rider on ``device`` (the card unless the caller
+    passes ``"cpu"``; raises when CUDA is missing), every leaf a distinct
+    tensor: of one run, of ``runs`` runs (a leading axis), or with the
+    leading axes of a tuple ``runs`` ((C,) for a fleet, (R, C) for R fleet
+    runs)."""
+    device = resolve_device(device)
+    if runs is None:
+        lead = ()
+    else:
+        lead = tuple(runs) if isinstance(runs, tuple) else (int(runs),)
     zeros = lambda n: torch.zeros((*lead, n), dtype=F32, device=device)
     return TelemetryState(scalars=zeros(N_SCALARS),
                           staleness_hist=zeros(N_STALENESS_BINS),
@@ -145,8 +154,10 @@ def mark_refresh(tel: TelemetryState) -> TelemetryState:
 def fold_window(tel: TelemetryState, util: torch.Tensor, capacity,
                 stats: Optional[WindowStats]) -> TelemetryState:
     """Fold one window of events: occupancy/headroom histograms, the
-    staleness clock, and the window's observable sufficient statistics."""
-    frac = util / capacity
+    staleness clock, and the window's observable sufficient statistics.
+    ``capacity`` (a number, or a fleet's [C] tensor) divides as a tensor:
+    CUDA divides by a Python number as a multiply by its reciprocal."""
+    frac = util / torch.as_tensor(capacity, dtype=F32, device=util.device)
     occ = _hist_add(tel.occupancy_hist, _hist_bin(frac, N_OCC_BINS))
     head = _hist_add(tel.headroom_hist, _hist_bin(1.0 - frac, N_OCC_BINS))
     s = tel.scalars.clone()
@@ -189,28 +200,35 @@ def fold_decisions(tel: TelemetryState, accept: torch.Tensor,
 
 def telemetry_summary(tel: TelemetryState) -> dict:
     """Host-side summary dict of one run's rider: scalar counters as
-    floats, histograms as lists, plus derived means (the JAX package's
-    keys for a single cluster). A batch's rider: pass one run's leaves,
-    ``TelemetryState(*(x[r] for x in tel))``."""
-    if tel.scalars.ndim != 1:
-        raise ValueError(f"telemetry_summary reads one run's rider; got "
-                         f"scalars {tuple(tel.scalars.shape)}")
+    floats, histograms as lists, plus derived means, with the JAX
+    package's keys. A fleet's rider ([C]-leading leaves) is summed over the
+    clusters in float32 (as the JAX package sums it), with each cluster's
+    ``n_routed`` and ``n_admit`` kept under ``per_cluster``. A batch's
+    rider: pass one run's leaves, ``TelemetryState(*(x[r] for x in
+    tel))``."""
+    if tel.scalars.ndim not in (1, 2):
+        raise ValueError(f"telemetry_summary reads one run's rider (one "
+                         f"cluster or a fleet); got scalars "
+                         f"{tuple(tel.scalars.shape)}")
     host = TelemetryState(*(x.detach().cpu().numpy() for x in tel))
-    s = host.scalars
+    fleet = host.scalars.ndim == 2
+    agg = (TelemetryState(*(np.sum(x, axis=0) for x in host)) if fleet
+           else host)
+    s = agg.scalars
     placed = float(s[I_ARR_PLACED])
     mean_c0 = float(s[I_ARR_C0_SUM]) / placed if placed else 0.0
     var_c0 = (float(s[I_ARR_C0_SUMSQ]) / placed - mean_c0 ** 2) if placed \
         else 0.0
-    return {
+    out = {
         "n_admit": float(s[I_N_ADMIT]),
         "n_reject_capacity": float(s[I_N_REJECT_CAPACITY]),
         "n_reject_policy": float(s[I_N_REJECT_POLICY]),
         "n_routed": float(s[I_N_ROUTED]),
         "n_refreshes": float(s[I_N_REFRESHES]),
         "n_windows": float(s[I_N_WINDOWS]),
-        "staleness_hist": host.staleness_hist.tolist(),
-        "occupancy_hist": host.occupancy_hist.tolist(),
-        "headroom_hist": host.headroom_hist.tolist(),
+        "staleness_hist": agg.staleness_hist.tolist(),
+        "occupancy_hist": agg.occupancy_hist.tolist(),
+        "headroom_hist": agg.headroom_hist.tolist(),
         "obs": {
             "core_deaths": float(s[I_OBS_CORE_DEATHS]),
             "exposure_core_hours": float(s[I_OBS_EXPOSURE_CORE_HOURS]),
@@ -224,3 +242,9 @@ def telemetry_summary(tel: TelemetryState) -> dict:
         "arr_c0_mean": mean_c0,
         "arr_c0_var": max(var_c0, 0.0),
     }
+    if fleet:
+        out["per_cluster"] = {
+            "n_routed": host.scalars[:, I_N_ROUTED].tolist(),
+            "n_admit": host.scalars[:, I_N_ADMIT].tolist(),
+        }
+    return out

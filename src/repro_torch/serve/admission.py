@@ -1,7 +1,7 @@
 """Online admission service: the simulator's admission core, served live.
 
 PyTorch counterpart of the JAX package's ``serve/admission.py`` for one
-cluster and one device. The paper's provider "has to continuously decide"
+cluster or a routed fleet, on one device. The paper's provider "has to continuously decide"
 admission as workloads arrive; this module is that decision loop as a
 long-lived engine rather than ``make_run``'s offline loop:
 
@@ -33,9 +33,15 @@ long-lived engine rather than ``make_run``'s offline loop:
     the engine's device and on the CUDA stream current when the engine was
     built, whatever thread calls it, under one state lock.
 
+Fleet configurations (``FleetConfig``) run the same engine with a [C]
+cluster axis and a ``sim.routing.Router`` assigning each micro-batch lane
+to a cluster before per-cluster admission, as ``make_fleet_run`` steps
+them: ``tick(gen=...)`` draws each cluster's events from its own generator
+(``sim.simulator.fleet_generators``), and a micro-batch's curves are
+evaluated once for every cluster.
+
 Left out, each raising ``NotImplementedError`` that names its ROADMAP
-Queue A item: a fleet (``FleetConfig``, ``router=``) and ``shards=``
-(item 5), ``drift_detector=`` (item 8).
+Queue A item: ``shards=`` (item 5, the mesh), ``drift_detector=`` (item 8).
 """
 from __future__ import annotations
 
@@ -61,9 +67,14 @@ from ..device import resolve_device
 from ..obs.counters import TelemetryState, telemetry_summary
 from ..obs.export import HostHistogram, log_buckets
 from ..obs.tracing import DecisionTracer, annotate
-from ..sim.core import (ArrivalStream, CoreState, SimConfig, StepOutcome,
-                        make_admission_core, tree_to)
-from ..sim.simulator import RunMetrics, _accumulate_step, _run_metrics
+from ..core.moments import MomentCurves
+from ..sim.core import (ArrivalStream, CoreState, FleetConfig, SimConfig,
+                        StepOutcome, make_admission_core, tree_to)
+from ..sim.routing import RouteContext
+from ..sim.simulator import (_accumulate_step, _check_fleet_policy_capacity,
+                             _fleet_metrics,
+                             _run_metrics, _sample_tables, _to_clusters,
+                             broadcast_policy, fleet_generators)
 
 _REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", ".."))
@@ -119,8 +130,8 @@ class ExternalEvents(NamedTuple):
     """Observed cluster events for one ``dt``-hour window (production
     ingestion path — replaces the fitted processes' simulated draw).
 
-    All arrays are per slot, ``[S]``: ``core_deaths`` cores lost per
-    deployment, ``spont_death`` whole-deployment shutdowns, and the
+    All arrays are per slot, ``[S]`` (``[C, S]`` for fleets):
+    ``core_deaths`` cores lost per deployment, ``spont_death`` whole-deployment shutdowns, and the
     window's scale-out demand (``scaleout_cores`` cores over
     ``n_scaleouts`` requests; grants are decided against capacity in slot
     order, exactly as the simulated path does).
@@ -155,8 +166,11 @@ class OnlineAdmissionEngine:
         ...
         eng.metrics()                              # RunMetrics so far
 
-    ``cfg`` is a single cluster's ``SimConfig``; the state lives on
-    ``device`` (the card unless the caller passes ``"cpu"``).
+    ``cfg`` is a single cluster's ``SimConfig`` or a ``FleetConfig`` (a
+    [C] cluster axis, each micro-batch routed by ``router``, default
+    ``LeastUtilizedRouter``, then admitted per cluster; ``metrics()`` then
+    returns ``FleetMetrics``); the state lives on ``device`` (the card
+    unless the caller passes ``"cpu"``).
     ``naive=True`` selects the ablation front-end: one full aggregate
     recompute and a width-1 decision per request (what admission costs
     without the maintained incremental aggregate).
@@ -189,13 +203,13 @@ class OnlineAdmissionEngine:
                  drift_detector=None, shards: Optional[int] = None,
                  flush_slo_ms: Optional[float] = None, seed: int = 0,
                  device="cuda"):
-        if not isinstance(cfg, SimConfig):
-            raise NotImplementedError(
-                f"a fleet configuration ({type(cfg).__name__}) "
-                + _NOT_PORTED.format("5 (fleet)"))
-        if router is not None:
-            raise NotImplementedError("router= " + _NOT_PORTED.format(
-                "5 (fleet)"))
+        self.fleet = isinstance(cfg, FleetConfig)
+        if not (self.fleet or isinstance(cfg, SimConfig)):
+            raise TypeError(f"cfg must be a SimConfig or a FleetConfig, got "
+                            f"{type(cfg).__name__}")
+        if router is not None and not self.fleet:
+            raise ValueError("router= routes a fleet's arrivals: pass a "
+                             "FleetConfig")
         if shards is not None and int(shards) != 1:
             raise NotImplementedError("shards= " + _NOT_PORTED.format(
                 "5 (mesh)"))
@@ -203,14 +217,16 @@ class OnlineAdmissionEngine:
             raise NotImplementedError(
                 "drift_detector= " + _NOT_PORTED.format(
                     "8 (tuning/drift.py)"))
-        base = cfg
+        base = cfg.base if self.fleet else cfg
         if scale is not None:
             from ..tuning.kcurve import pick_agg_refresh
 
             base = base._replace(agg_refresh_steps=pick_agg_refresh(
                 scale, fallback=base.agg_refresh_steps,
                 n_steps=base.n_steps))
-        self.cfg = self.base = base
+        self.cfg = (FleetConfig(base=base, capacities=cfg.capacities)
+                    if self.fleet else base)
+        self.base = base
         self.n_shards = 1
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -230,16 +246,31 @@ class OnlineAdmissionEngine:
         self.seed = int(seed)
         self.naive = naive
         self.width = int(micro_batch or base.max_arrivals)
+        self.n_c = self.cfg.n_clusters if self.fleet else 1
         self.policy = tree_to(policy, self.device)
+        self._caps = self.router = None
+        if self.fleet:
+            from ..sim.routing import LeastUtilizedRouter
+
+            _check_fleet_policy_capacity(policy, self.cfg)
+            self._caps = torch.tensor(self.cfg.capacities, dtype=F32,
+                                      device=self.device)
+            self.router = LeastUtilizedRouter() if router is None else router
+            self.policy = broadcast_policy(self.policy, self.n_c)
 
         # -- engine state ---------------------------------------------------
         with self._on_device():
-            self._cs: CoreState = self.core.init()
+            self._cs: CoreState = self.core.init(
+                (self.n_c,) if self.fleet else None)
+            # window accept/reject counts ([C] on the device for a fleet),
+            # and a fleet's arrivals routed nowhere
+            self._acc, self._rej = self._zero_counts(), self._zero_counts()
+            self._rej_all = self._zero_counts(())
         self._out: Optional[StepOutcome] = None   # current window's dynamics
         self._util = None                         # decision-time utilization
         self._window_seed: Optional[int] = None   # events path's window seed
-        self._acc = 0.0                           # window accept/reject
-        self._rej = 0.0                           # counts
+        self._gens = None        # fleet: (tick generator, its C + 1 derived)
+        self._route_gen = None   # fleet: the open window's router generator
         self.ticks = 0
         self.decisions = 0
         self._util_trace: list = []
@@ -282,6 +313,15 @@ class OnlineAdmissionEngine:
             "rho": _host(policy.rho).tolist(),
         }
 
+    def _zero_counts(self, shape=None):
+        """A window's zero counts: a number for one cluster; for a fleet a
+        float32 tensor on the device (of ``shape``, [C] by default), so
+        that counting a slice copies nothing to the device."""
+        if not self.fleet:
+            return 0.0
+        shape = (self.n_c,) if shape is None else shape
+        return torch.zeros(shape, dtype=F32, device=self.device)
+
     @contextlib.contextmanager
     def _on_device(self):
         """Run the body on the engine's device and stream (CUDA state is
@@ -300,7 +340,7 @@ class OnlineAdmissionEngine:
         (``observe_events``) with the random draw replaced by the
         observation — the same death clamping, greedy slot-order grants
         against capacity, conjugate belief updates and telemetry fold."""
-        shape = (self.base.max_slots,)
+        shape = ((self.n_c,) if self.fleet else ()) + (self.base.max_slots,)
         leaves = {}
         for name, dtype in (("core_deaths", F32), ("spont_death", torch.bool),
                             ("scaleout_cores", F32), ("n_scaleouts", F32)):
@@ -310,7 +350,14 @@ class OnlineAdmissionEngine:
                                  f"{tuple(x.shape)}, the slot table {shape}")
             leaves[name] = x.to(device=self.device, dtype=dtype,
                                 non_blocking=True)
-        return self.core.observe_events(cs, StepEvents(**leaves))
+        return self.core.observe_events(cs, StepEvents(**leaves), self._caps)
+
+    def _fleet_generators(self, gen: torch.Generator) -> list:
+        """The C + 1 generators ``make_fleet_run`` derives from ``gen``
+        (derived once for a generator the ticks keep passing)."""
+        if self._gens is None or self._gens[0] is not gen:
+            self._gens = (gen, fleet_generators(gen, self.n_c))
+        return self._gens[1]
 
     def tick(self, gen: Optional[torch.Generator] = None,
              events: Optional[ExternalEvents] = None):
@@ -321,8 +368,9 @@ class OnlineAdmissionEngine:
         blocked ``agg_refresh_steps`` schedule says so, then applies this
         window's deaths / scale-out grants / belief updates — drawn from
         the fitted processes with ``gen`` (on the engine's device; the
-        draws ``make_run``'s step makes, in its order), or observed via
-        ``events``.
+        draws ``make_run``'s step makes, in its order; a fleet's clusters
+        and router from ``gen``'s ``fleet_generators``, as
+        ``make_fleet_run``'s step draws them), or observed via ``events``.
         """
         if (gen is None) == (events is None):
             raise ValueError("tick() needs exactly one of gen= or events=")
@@ -336,12 +384,24 @@ class OnlineAdmissionEngine:
                 if events is not None:
                     self._cs, self._out = self._ingest_one(self._cs, events)
                     self._window_seed = window_seed(self.seed, self.ticks)
+                    if self.fleet:
+                        self._route_gen = torch.Generator(
+                            device=self.device).manual_seed(
+                                self._window_seed)
+                elif self.fleet:
+                    gens = self._fleet_generators(gen)
+                    ev = _sample_tables(self.core, gens[:self.n_c],
+                                        self._cs.slots)
+                    self._cs, self._out = self.core.observe_events(
+                        self._cs, ev, self._caps)
+                    self._route_gen = gens[self.n_c]
+                    self._window_seed = None
                 else:
                     self._cs, self._out = self.core.apply_events(gen,
                                                                  self._cs)
                     self._window_seed = None
             self._util = self._out.util
-            self._acc = self._rej = 0.0
+            self._acc, self._rej = self._zero_counts(), self._zero_counts()
             self.ticks += 1
 
     def _close_window(self):
@@ -357,7 +417,7 @@ class OnlineAdmissionEngine:
             self._out = None
             # zero the folded window counters so a second close (metrics()
             # followed by tick()) cannot double-count them
-            self._acc = self._rej = 0.0
+            self._acc, self._rej = self._zero_counts(), self._zero_counts()
 
     # ------------------------------------------------- micro-batch frontend
 
@@ -453,13 +513,16 @@ class OnlineAdmissionEngine:
                     rec["threshold"] = self._policy_info["threshold"]
                 self.tracer.record(**rec)
 
-    def decide_slice(self, stream_t: ArrivalStream,
-                     valid) -> np.ndarray:
+    def decide_slice(self, stream_t: ArrivalStream, valid,
+                     route_draws=None) -> np.ndarray:
         """Decide one pre-stacked width-``micro_batch`` arrival slice (the
         path the equivalence tests and the card's smoke drive; ``submit`` +
         ``flush`` stack onto exactly this). ``stream_t`` has [A] leaves
         (tensors or numpy), ``valid`` is an [A] mask. Returns the [A] accept
-        mask, read back to the host once."""
+        mask, read back to the host once (for fleets: OR over the
+        per-cluster [C, A] decisions). A fleet's router draws from the
+        window's router generator, or takes ``route_draws`` (its ``draw``
+        result, e.g. another package's draws)."""
         valid = _host(valid).astype(bool)
         n_valid = int(valid.sum())
         with self._state_lock, self._on_device():
@@ -478,7 +541,10 @@ class OnlineAdmissionEngine:
                 # incrementally-maintained aggregate
                 cs = core.refresh_aggregates(cs)
             cand = core.candidates(core.candidate_rows(stream_t))
-            if self.tracer is not None and not self.naive:
+            if self.fleet:
+                cs, accept = self._route_and_admit(cs, cand, stream_t,
+                                                   valid_t, route_draws)
+            elif self.tracer is not None and not self.naive:
                 cs, accept, self._last_diag = core.decide_batch_traced(
                     self.policy, cs, self._util, cand, stream_t, valid_t)
             else:
@@ -490,11 +556,39 @@ class OnlineAdmissionEngine:
                                    dim=-1)
             self._cs = cs
             accept = accept.cpu().numpy()
-            n_acc = float(np.sum(accept))
-            self._acc += n_acc
-            self._rej += n_valid - n_acc
+            if not self.fleet:
+                n_acc = float(np.sum(accept))
+                self._acc += n_acc
+                self._rej += n_valid - n_acc
             self.decisions += n_valid
         return accept
+
+    def _route_and_admit(self, cs: CoreState, cand: MomentCurves,
+                         stream_t: ArrivalStream, valid_t: torch.Tensor,
+                         route_draws):
+        """A fleet's slice: route it on the running per-cluster state, then
+        admit per cluster (``make_fleet_run``'s step), counting on the
+        device. Returns (cs, the [A] OR of the [C, A] decisions)."""
+        n_c = self.n_c
+        ctx = RouteContext(cand=cand, c0=stream_t.c0, valid=valid_t,
+                           agg_el=cs.agg_el, agg_vl=cs.agg_vl,
+                           util=self._util, capacities=self._caps,
+                           policy=self.policy)
+        draws = (self.router.draw(self._route_gen, ctx) if route_draws is None
+                 else tree_to(route_draws, self.device))
+        assign = torch.clamp(self.router.assign(ctx, draws), 0, n_c)
+        clusters = torch.arange(n_c, device=self.device)
+        mask = valid_t & (assign == clusters[:, None])          # [C, A]
+        cand_c = MomentCurves(*(x.expand(n_c, *x.shape) for x in cand))
+        cs, accept = self.core.decide_batch(self.policy, cs, self._util,
+                                            cand_c,
+                                            _to_clusters(stream_t, n_c), mask)
+        n_acc = torch.sum(accept.to(F32), dim=-1)
+        self._acc = self._acc + n_acc
+        self._rej = self._rej + (torch.sum(mask.to(F32), dim=-1) - n_acc)
+        self._rej_all = self._rej_all + torch.sum(
+            (valid_t & (assign == n_c)).to(F32))
+        return cs, torch.any(accept, dim=0)
 
     def _decide(self, arrivals: list) -> np.ndarray:
         """Stack ``Arrival`` tickets into one padded fixed-width slice: one
@@ -597,11 +691,12 @@ class OnlineAdmissionEngine:
 
     # -------------------------------------------------------------- metrics
 
-    def metrics(self) -> RunMetrics:
+    def metrics(self):
         """Run-so-far metrics on the engine's device, assembled as
-        ``make_run`` assembles its own (same helpers, same arithmetic).
-        After ``n_steps`` ticks over ``make_run``'s generator and stream
-        these equal its result bit for bit."""
+        ``make_run`` assembles its own (same helpers, same arithmetic):
+        ``RunMetrics`` for a single cluster, ``FleetMetrics`` for a fleet.
+        After ``n_steps`` ticks over ``make_run``'s (``make_fleet_run``'s)
+        generator and stream these equal its result bit for bit."""
         with self._state_lock, self._on_device():
             self._close_window()
             n_t = len(self._util_trace)
@@ -611,9 +706,15 @@ class OnlineAdmissionEngine:
                 util_trace = torch.stack(self._util_trace, dim=-1)
                 fail_trace = torch.stack(self._fail_trace, dim=-1)
             else:
-                util_trace = fail_trace = torch.zeros(0, device=self.device)
-            return _run_metrics(self.base, self._cs.slots, util_trace,
-                                fail_trace, horizon_hours=horizon)
+                shape = (self.n_c, 0) if self.fleet else (0,)
+                util_trace = fail_trace = torch.zeros(shape,
+                                                      device=self.device)
+            if not self.fleet:
+                return _run_metrics(self.base, self._cs.slots, util_trace,
+                                    fail_trace, horizon_hours=horizon)
+            return _fleet_metrics(self.base, self._caps, self._cs.slots,
+                                  util_trace, fail_trace, self._rej_all,
+                                  horizon_hours=horizon)
 
     def metrics_snapshot(self) -> dict:
         """Non-blocking observability snapshot: engine counters, the

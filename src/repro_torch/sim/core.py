@@ -1,8 +1,8 @@
 """The admission core: one state + function layer under the simulator.
 
-PyTorch counterpart of ``repro.sim.core`` for one cluster, every prior mode
-(GLOBAL, §6 PSEUDO, §7 MIX_LABELED and MIX_UNLABELED), with the telemetry
-rider and no mesh:
+PyTorch counterpart of ``repro.sim.core``: one cluster or a fleet, every
+prior mode (GLOBAL, §6 PSEUDO, §7 MIX_LABELED and MIX_UNLABELED), with the
+telemetry rider and no mesh:
 
   * ``CoreState`` — the slot table with per-deployment conjugate beliefs
     (``SimState``) plus the incrementally-maintained cluster aggregate
@@ -38,7 +38,11 @@ a step reads a value back to the host.
 
 Runs: every function takes the state of one run (slot leaves [S], the
 aggregate [N]) or of R runs at once (a leading run axis: [R, S], [R, N],
-arrivals [R, A]), where the JAX package vmaps. Each run of a batch gets the
+arrivals [R, A]), where the JAX package vmaps. A fleet (``FleetConfig``,
+``sim.simulator.make_fleet_run``) adds a cluster axis the same way: [C, S]
+slot leaves, or [R, C, S] for R fleet runs, with a [C] capacity vector
+for ``observe_events``; the refresh sums every table of the state in one
+aggregate launch. Each run of a batch gets the
 bits it gets alone: every reduction inside a run is over integer counts
 (exact in any order), the aggregate kernel sums each run in the one-run
 order, the candidates' curves are per row, and placed candidates are folded
@@ -54,6 +58,7 @@ tensors they run the kernels' plain PyTorch versions; ``"fused"`` and
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -164,6 +169,61 @@ def tree_to(tree, device):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_to(x, device) for x in tree))
     return tree
+
+
+class FleetConfig(NamedTuple):
+    """Static fleet configuration: a per-cluster ``SimConfig`` template plus
+    the per-cluster capacities.
+
+    ``base`` describes each cluster's slot array, step size, information
+    model, and aggregate-refresh blocking — *and* the fleet-wide arrival
+    process (``arrival_rate``/``max_arrivals`` are the whole fleet's: one
+    stream is drawn and routed, not one per cluster). ``base.capacity``
+    conventionally holds the fleet total (``make_fleet_config`` sets it);
+    the authoritative per-cluster capacities are ``capacities``.
+    """
+
+    base: SimConfig
+    capacities: tuple                # per-cluster core capacities (static)
+
+    @property
+    def n_clusters(self) -> int:
+        return len(self.capacities)
+
+    @property
+    def total_capacity(self) -> float:
+        return float(sum(self.capacities))
+
+
+def make_fleet_config(capacities, **base_overrides) -> FleetConfig:
+    """Documented FleetConfig constructor: ``base_overrides`` build the
+    per-cluster template through ``make_config`` (priors default to
+    AZURE_PRIORS, every field validated); ``base.capacity`` defaults to the
+    fleet total."""
+    caps = tuple(float(c) for c in capacities)
+    base_overrides.setdefault("capacity", sum(caps))
+    return _validate_fleet_config(
+        FleetConfig(base=make_config(**base_overrides), capacities=caps))
+
+
+def _validate_fleet_config(fcfg: FleetConfig) -> FleetConfig:
+    if not fcfg.capacities:
+        raise ValueError("FleetConfig.capacities is empty")
+    if any(not math.isfinite(c) or c <= 0.0 for c in fcfg.capacities):
+        raise ValueError(
+            f"FleetConfig.capacities must be positive, got {fcfg.capacities}")
+    _validate_config(fcfg.base)
+    return fcfg
+
+
+def stream_config(cfg) -> SimConfig:
+    """The ``SimConfig`` governing arrival-stream layout and priors:
+    identity for a ``SimConfig``; for a ``FleetConfig`` the base template
+    with the fleet-total capacity (fleet arrivals are drawn fleet-wide and
+    only routed to clusters at simulation time)."""
+    if isinstance(cfg, FleetConfig):
+        return cfg.base._replace(capacity=cfg.total_capacity)
+    return cfg
 
 
 class ArrivalStream(NamedTuple):
@@ -311,9 +371,16 @@ class StepOutcome(NamedTuple):
     departed: torch.Tensor        # deployments that died this step
 
 
-def _init_state(cfg: SimConfig, device, runs: Optional[int] = None
-                ) -> SimState:
-    lead = () if runs is None else (runs,)
+def lead_shape(runs) -> tuple:
+    """The leading axes of a state of ``runs``: none for one run, (R,) for
+    R runs, or a tuple of them as it is (e.g. (R, C) for R fleet runs)."""
+    if runs is None:
+        return ()
+    return tuple(runs) if isinstance(runs, tuple) else (int(runs),)
+
+
+def _init_state(cfg: SimConfig, device, runs=None) -> SimState:
+    lead = lead_shape(runs)
     s = (*lead, cfg.max_slots)
     zeros = lambda shape: torch.zeros(shape, dtype=F32, device=device)
     return SimState(
@@ -374,16 +441,18 @@ def _make_aggregate_fn(cfg: SimConfig, grid: torch.Tensor):
     on the CPU; R runs' tables in one launch); AGG_FUSED reduces 512-slot
     blocks with a left fold, as the JAX package's fused path does;
     AGG_REFERENCE materializes [S, N] and sums (the oracle). The two oracle
-    lanes take R runs' tables one run at a time.
+    lanes take R runs' tables one run at a time. Tables with more than one
+    leading axis ([R, C, S] of a fleet batch) are summed as one [R C, S]
+    batch.
     """
     if cfg.agg_backend == AGG_KERNEL:
         from ..kernels.moment_curves.ops import aggregate_moment_curves_kernel
 
-        def aggregate(bel, cores, alive):
+        def tables(bel, cores, alive):
             return aggregate_moment_curves_kernel(
                 bel, cores, alive, grid, cfg.priors, d_points=cfg.d_points)
 
-        return aggregate
+        return _over_tables(tables)
     if cfg.agg_backend == AGG_REFERENCE:
 
         def one_run(bel, cores, alive):
@@ -398,12 +467,27 @@ def _make_aggregate_fn(cfg: SimConfig, grid: torch.Tensor):
             return aggregate_moment_curves(bel, cores, alive, grid,
                                            cfg.priors, d_points=cfg.d_points)
 
-    def aggregate(bel, cores, alive):
+    def tables(bel, cores, alive):
         if cores.ndim == 1:
             return one_run(bel, cores, alive)
         runs = [one_run(GammaBelief(*(x[r] for x in bel)), cores[r],
                         alive[r]) for r in range(cores.shape[0])]
         return MomentCurves(*(torch.stack(x) for x in zip(*runs)))
+
+    return _over_tables(tables)
+
+
+def _over_tables(tables):
+    """``tables`` (slot columns [S] or [R, S]) taking columns with any
+    number of leading axes: more than one is flattened into one [R C, S]
+    batch (a view of the contiguous state) and the sums are shaped back."""
+    def aggregate(bel, cores, alive):
+        lead = cores.shape[:-1]
+        if len(lead) <= 1:
+            return tables(bel, cores, alive)
+        flat = lambda x: x.reshape(-1, x.shape[-1])
+        out = tables(GammaBelief(*map(flat, bel)), flat(cores), flat(alive))
+        return MomentCurves(*(x.reshape(*lead, -1) for x in out))
 
     return aggregate
 
@@ -472,6 +556,8 @@ def _apply_step_events(cfg: SimConfig, slots: SimState, ev: StepEvents,
     req = ev.scaleout_cores.to(F32) * alive_f
     n_req = ev.n_scaleouts.to(F32) * alive_f
     util = torch.sum(cores * alive_f, dim=-1)
+    if isinstance(capacity, torch.Tensor):     # [C] or [R, C]: per table
+        capacity = capacity[..., None]
     grant = (util[..., None] + torch.cumsum(req, -1)) <= capacity
     cores = cores + torch.where(grant, req, 0.0)
     failed = torch.sum(torch.where(grant, 0.0, n_req), dim=-1)
@@ -537,9 +623,11 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
     candidates_fn = _make_candidates_fn(cfg, grid, needs_moments, n_grid,
                                         _make_curves_fn(cfg))
 
-    def init(runs: Optional[int] = None) -> CoreState:
-        """A fresh empty state: of one run, or of ``runs`` runs."""
-        lead = () if runs is None else (runs,)
+    def init(runs=None) -> CoreState:
+        """A fresh empty state: of one run, of ``runs`` runs, or with the
+        leading axes of a tuple ``runs`` ((C,) for a fleet, (R, C) for R
+        fleet runs)."""
+        lead = lead_shape(runs)
         zeros = lambda: torch.zeros((*lead, n_grid), dtype=F32,
                                     device=device)
         tel = init_telemetry(runs, device) if cfg.telemetry else None
@@ -563,8 +651,10 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
 
     def observe_events(cs: CoreState, events: StepEvents, capacity=None):
         """One ``dt``-hour step of cluster dynamics from given (observed or
-        pre-drawn) events; with telemetry the rider folds the window's
-        occupancy and observable sufficient statistics. The maintained
+        pre-drawn) events, scale-outs granted against ``capacity`` (the
+        config's by default; a fleet passes its [C] capacities); with
+        telemetry the rider folds the window's occupancy and observable
+        sufficient statistics. The maintained
         aggregate is NOT touched — within-block staleness is the
         ``agg_refresh_steps`` contract."""
         cap = cfg.capacity if capacity is None else capacity

@@ -129,7 +129,11 @@ def eval_theta_grid(run_fn, kind: int, thetas, keys, *, capacity: float,
     The flat batch holds thetas repeated R times and the seeds tiled T
     times (run t R + r is (thetas[t], keys[r])); ``streams`` (a stacked [R]
     batch) is tiled the same way. ``policy_fn(thetas)`` overrides how the
-    flat [T*R] thetas become ``PolicyParams`` ([T*R] leaves).
+    flat [T*R] thetas become ``PolicyParams`` ([T*R] leaves). With a fleet
+    ``run_fn`` (a ``make_fleet_run`` run) pass a ``fleet_policy`` closure,
+    e.g. ``lambda th: fleet_policy(kind, capacities=caps, rho=th)``, which
+    gives [T*R, C] leaves, and ``capacity`` the fleet total; the returned
+    ``FleetMetrics`` reshape the same way (``per_cluster`` to [T, R, C]).
     """
     _one_device(devices)
     thetas = torch.as_tensor(np.asarray(thetas, dtype=np.float32))
@@ -179,7 +183,10 @@ def calibrate(
     ``thetas`` (parameter space) overrides the generated grid and implies a
     single stage. ``streams`` calibrates against a fixed stacked [R]
     arrival-stream batch instead of prior-sampled arrivals.
-    ``policy_fn(thetas)`` overrides candidate-policy construction.
+    ``policy_fn(thetas)`` overrides candidate-policy construction: a
+    ``fleet_policy`` closure calibrates a fleet run against the fleet SLA
+    (``capacity`` then the fleet total, which sets the threshold kinds'
+    search bounds).
 
     The result is invariant to permutation of the candidate grid and to the
     order of the keys: selection is by candidate value, and every candidate

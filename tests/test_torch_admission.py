@@ -18,7 +18,8 @@ the port's own ``make_run``.
   submit/flush front-end, the background pump, observed-event ingestion,
   protocol errors, operating points, window-close idempotence, failing
   flushes, the deadline scheduler, a ticker/pump/submitter stress test, and
-  the options left out (fleet, shards, drift), which raise.
+  the options left out (shards, drift), which raise. The fleet mode is
+  tested in ``tests/test_torch_fleet_engine.py``.
 """
 import json
 import sys
@@ -559,7 +560,7 @@ def test_naive_lane_refreshes_every_request():
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(router=object()), "item 5"),
+    (dict(shards=4), "item 5"),
     (dict(shards=2), "item 5"),
     (dict(drift_detector=object()), "item 8"),
 ])
@@ -569,12 +570,22 @@ def test_unported_options_raise(kwargs, match):
 
 
 def test_fleet_configuration_raises():
-    from repro.sim import FleetConfig
+    """A fleet engine is ported (``tests/test_torch_fleet_engine.py``); a
+    fleet with ``shards=`` still raises (the mesh, item 5), and a router
+    without a fleet is refused."""
+    from repro_torch.core import fleet_policy
+    from repro_torch.sim import FleetConfig, LeastUtilizedRouter
 
-    fleet = FleetConfig(base=SMALL, capacities=(300.0, 200.0))
+    caps = (300.0, 200.0)
+    fleet = FleetConfig(base=PSMALL, capacities=caps)
+    policy = fleet_policy(SECOND, capacities=caps, rho=RHO)
+    eng = OnlineAdmissionEngine(fleet, PGRID, SECOND, policy, device="cpu")
+    assert eng.fleet and eng.n_c == 2
     with pytest.raises(NotImplementedError, match="item 5"):
-        OnlineAdmissionEngine(fleet, PGRID, SECOND, _policy(PSMALL),
+        OnlineAdmissionEngine(fleet, PGRID, SECOND, policy, shards=2,
                               device="cpu")
+    with pytest.raises(ValueError, match="FleetConfig"):
+        _engine(PSMALL, router=LeastUtilizedRouter())
 
 
 def test_engine_defaults_to_the_card():

@@ -302,6 +302,98 @@ def test_card_batch_equals_single_runs(card):
             assert torch.equal(getattr(metrics, name)[r], getattr(one, name))
 
 
+def test_card_fleet_of_one_equals_make_run(card):
+    """A fleet of one on the card takes ``make_run``'s decisions and metrics
+    bit for bit on the same seed."""
+    from repro_torch.core import fleet_policy
+    from repro_torch.sim import FleetConfig, make_fleet_run
+
+    cfg = make_config(capacity=500.0, arrival_rate=0.08,
+                      horizon_hours=30 * 24.0, dt=24.0, max_slots=96,
+                      max_arrivals=4, d_points=8, agg_refresh_steps=3)
+    grid = geometric_grid(24.0, 3 * 30 * 24.0, 12)
+    m1, acc1 = make_run(cfg, grid, SECOND, record_decisions=True,
+                        device=card)(7, make_policy(SECOND, rho=0.05,
+                                                    capacity=cfg.capacity))
+    fleet = FleetConfig(base=cfg, capacities=(cfg.capacity,))
+    mf, accf, _ = make_fleet_run(fleet, grid, SECOND, record_decisions=True,
+                                 device=card)(7, fleet_policy(
+                                     SECOND, capacities=(cfg.capacity,),
+                                     rho=0.05))
+    assert torch.equal(accf[:, 0], acc1)
+    for name in m1._fields:
+        got = getattr(mf.per_cluster, name)
+        assert torch.equal(got[..., 0, :] if got.ndim > 1 else got[0],
+                           getattr(m1, name)), name
+
+
+def test_card_fleet_refresh_is_one_aggregate_launch(card):
+    """A fleet's refresh sums all C clusters' tables (R C for a batch of R
+    fleet runs) in one aggregate launch: one CUDA kernel in a graph of the
+    refresh, and one launch a refresh over a run; each cluster's sums have
+    the bits of a launch on its table alone."""
+    from repro_torch.core import fleet_policy
+    from repro_torch.sim import FleetConfig, make_admission_core, make_fleet_run
+
+    cfg = make_config(capacity=500.0, arrival_rate=0.2,
+                      horizon_hours=30 * 24.0, dt=24.0, max_slots=96,
+                      max_arrivals=4, d_points=8, agg_refresh_steps=3)
+    grid = geometric_grid(24.0, 3 * 30 * 24.0, 12)
+    caps = (250.0, 150.0, 100.0)
+    run = make_fleet_run(FleetConfig(base=cfg, capacities=caps), grid,
+                         SECOND, device=card)
+    K.reset_launches()
+    run([1, 2], fleet_policy(SECOND, capacities=caps, rho=0.2))
+    assert K.LAUNCHES["moment_curves_agg_belief"] == cfg.n_steps // 3
+    assert K.LAUNCHES["moment_curves_belief"] == cfg.n_steps
+    core = make_admission_core(cfg, grid, SECOND, device=card)
+    bel, cores, alive, _ = _case(96, 12, 8, card, runs=6)
+    cs = core.init((2, 3))
+    cs = cs._replace(slots=cs.slots._replace(
+        bel=GammaBelief(*(x.view(2, 3, 96) for x in bel)),
+        cores=cores.view(2, 3, 96), alive=alive.view(2, 3, 96)))
+    kernels = _kernels_of_one_call(lambda: core.refresh_aggregates(cs))
+    assert len(kernels) == 1 and "agg_kernel" in kernels[0], kernels
+    out = core.refresh_aggregates(cs)
+    for r in range(2):
+        for c in range(3):
+            one = core.refresh_aggregates(core.init()._replace(
+                slots=core.init().slots._replace(
+                    bel=GammaBelief(*(x.view(2, 3, 96)[r, c] for x in bel)),
+                    cores=cores.view(2, 3, 96)[r, c],
+                    alive=alive.view(2, 3, 96)[r, c])))
+            assert torch.equal(one.agg_el, out.agg_el[r, c])
+            assert torch.equal(one.agg_vl, out.agg_vl[r, c])
+
+
+@pytest.mark.parametrize("runs,d", [(1, 4096), (4, 300)])
+def test_chunked_aggregate_matches_plain_and_narrow_launches(card, runs, d):
+    """The aggregate at ``paper_cascade``'s ~2,700 points, in chunks of 256:
+    against its plain version at the moment-curve tolerances, and each
+    chunk's columns bit for bit those of a launch over at most 256 points
+    that holds them (the whole grid's checkpoint spacing)."""
+    from repro_torch.core import paper_cascade
+
+    bel, cores, alive, _ = _case(d, 12, 24, card, runs=runs)
+    grid = paper_cascade(device=card)
+    n = grid.shape[0]
+    t, idx, frac, nd = ops.curve_grid(grid, 24)
+    args = (bel, cores, alive, t, idx, frac, nd, AZURE_PRIORS)
+    before = K.LAUNCHES["moment_curves_agg_belief"]
+    el, vl = K.moment_curves_agg_belief(*args)
+    assert K.LAUNCHES["moment_curves_agg_belief"] == before + len(
+        K.agg_chunks(n))
+    assert el.shape[-1] == n
+    want_el, want_vl = R.moment_curves_agg_belief_ref(*args)
+    torch.testing.assert_close(el, want_el, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(vl, want_vl, rtol=2e-3, atol=1e-4)
+    for a, b in [(0, 100), (250, 300), (n - 37, n), (1000, 1256)]:
+        part = K._agg_belief_launch(bel, cores, alive, t[a:b], idx[a:b],
+                                    frac[a:b], t, nd, AZURE_PRIORS)
+        assert torch.equal(part[0], el[..., a:b])
+        assert torch.equal(part[1], vl[..., a:b])
+
+
 @pytest.mark.parametrize("prior_mode, n_obs", [("pseudo", 50),
                                                 ("labeled", 5),
                                                 ("unlabeled", 5)])

@@ -47,7 +47,9 @@ def test_scan_sees_the_whole_port():
             port + "serve/admission.py", port + "launch/admission_daemon.py",
             port + "obs/__init__.py", port + "obs/counters.py",
             port + "obs/export.py", port + "obs/log.py",
-            port + "obs/tracing.py"} <= names
+            port + "obs/tracing.py", port + "sim/routing.py",
+            port + "benchmarks/fleet_bench.py",
+            port + "core/policies.py", port + "tuning/calibrate.py"} <= names
     for kernel in ("moment_curves", "flash_attention", "decode_gqa"):
         for name in ("kernel.py", "ops.py", "ref.py"):
             assert f"{port}kernels/{kernel}/{name}" in names
@@ -126,6 +128,14 @@ summary = D.serve_loop(engine, stream, gen)
 assert summary["ticks"] == 4, summary
 text = snapshot_to_prometheus(engine.metrics_snapshot())
 assert "repro_admission_windows_total 4" in text, text
+args = D.parse_args(["--capacity", "500", "--hours", "96", "--dt", "24",
+                     "--max-slots", "32", "--micro-batch", "4",
+                     "--param", "0.05", "--telemetry", "--device", "cpu",
+                     "--fleet", "300,200"])
+engine, stream, gen, _ = D.build_engine(args)
+assert D.serve_loop(engine, stream, gen)["ticks"] == 4
+text = snapshot_to_prometheus(engine.metrics_snapshot())
+assert 'cluster="1"' in text, text
 assert not any(k.split(".")[0] in ("jax", "repro") and sys.modules[k]
                for k in sys.modules)
 print("ok")

@@ -166,9 +166,23 @@ def test_agg_belief_launcher_refuses_bad_alive(fix, error):
 
 
 def test_agg_belief_launcher_refuses_more_than_256_points():
-    _belief_launch("agg", _inputs(n=256))
+    """Since the chunked aggregate, the belief form takes any N (on the
+    card in chunks of at most 256 points; on the CPU its plain version in
+    one call, equal to the packed plain version); the packed form, the TPU
+    kernel's interface, still refuses more than 256."""
+    a = _inputs(n=257)
+    el, vl = _belief_launch("agg", a)
+    assert el.shape == vl.shape == (257,)
+    want = PREF.moment_curves_agg_belief_ref(
+        a["bel"], a["cores"], a["alive"], a["t"], a["idx"], a["frac"],
+        a["nd"], T_PRIORS)
+    assert torch.equal(el, want[0]) and torch.equal(vl, want[1])
+    assert PK.agg_chunks(257) == [(0, 256), (256, 257)]
+    assert PK.agg_chunks(256) == [(0, 256)]
+    params = PREF.pack_rows(a["bel"], a["cores"], T_PRIORS, alive=a["alive"])
     with pytest.raises(ValueError):
-        _belief_launch("agg", _inputs(n=257))
+        PK.moment_curves_agg_packed(params, a["t"], a["idx"], a["frac"],
+                                    a["nd"])
 
 
 def _belief_launch(which, a):

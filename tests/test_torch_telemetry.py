@@ -82,7 +82,7 @@ def test_folds_match_reference(seed):
     rng = np.random.default_rng(seed)
     a = 8
     f32 = lambda x: np.asarray(x, np.float32)
-    j_tel, t_tel = JC.init_telemetry(), C.init_telemetry()
+    j_tel, t_tel = JC.init_telemetry(), C.init_telemetry(device="cpu")
     for step in range(12):
         if step % 3 == 0:
             j_tel, t_tel = JC.mark_refresh(j_tel), C.mark_refresh(t_tel)
@@ -105,7 +105,33 @@ def test_folds_match_reference(seed):
     assert telemetry_summary(t_tel) == j_telemetry_summary(j_tel)
     assert float(t_tel.n_windows) == 12.0
     with pytest.raises(ValueError, match="one run"):
-        telemetry_summary(C.init_telemetry(runs=2))
+        telemetry_summary(C.init_telemetry(runs=(2, 3), device="cpu"))
+
+
+def test_init_telemetry_defaults_to_the_card():
+    """``init_telemetry`` builds on the card unless asked for the CPU, as
+    every entry point does (``device.resolve_device``)."""
+    tel = C.init_telemetry(runs=(3,), device="cpu")
+    assert tel.scalars.shape == (3, C.N_SCALARS)
+    if torch.cuda.is_available():
+        assert C.init_telemetry().scalars.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        C.init_telemetry()
+
+
+def test_fleet_rider_summary_matches_reference():
+    """A fleet's rider ([C]-leading leaves): totals over the clusters plus
+    ``per_cluster``, with the JAX package's keys and values."""
+    rng = np.random.default_rng(3)
+    tel = C.TelemetryState(*(
+        torch.from_numpy(rng.gamma(2.0, 3.0, (3, n)).astype(np.float32))
+        for n in (C.N_SCALARS, C.N_STALENESS_BINS, C.N_OCC_BINS,
+                  C.N_OCC_BINS)))
+    want = j_telemetry_summary(JC.TelemetryState(*(
+        jnp.asarray(x.numpy()) for x in tel)))
+    got = telemetry_summary(tel)
+    assert got == want and len(got["per_cluster"]["n_routed"]) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +380,11 @@ def test_serve_loop_stops_at_a_tick_boundary():
     assert summary["ticks"] == 0 and summary["decisions"] == 0
 
 
-@pytest.mark.parametrize("flag", [["--fleet", "300,200"], ["--shards", "2"]])
+@pytest.mark.parametrize("flag", [["--fleet", "300,200", "--shards", "2"],
+                                  ["--shards", "2"]])
 def test_daemon_unported_flags_raise(flag):
+    """``--fleet`` is ported (``tests/test_torch_fleet_engine.py``); a
+    fleet with ``--shards`` still raises (the mesh, item 5)."""
     args = D.parse_args(DAEMON_ARGS + ["--device", "cpu"] + flag)
     with pytest.raises(NotImplementedError, match="item 5"):
         D.build_engine(args)

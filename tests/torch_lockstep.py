@@ -185,3 +185,135 @@ def _stack(trees):
     if isinstance(first, tuple):
         return type(first)(*(_stack(xs) for xs in zip(*trees)))
     return np.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# fleets: the JAX package's fleet draws
+# ---------------------------------------------------------------------------
+
+
+def port_fleet_config(fcfg):
+    """The port's ``FleetConfig`` of a reference ``FleetConfig``."""
+    return bridge.from_reference(fcfg)
+
+
+def router_draws(name, key, n_clusters, width):
+    """The random draws the JAX package's router ``name`` makes from
+    ``key`` for ``width`` arrivals (as its ``route`` makes them), in the
+    port's ``Router.draw`` form: None for a deterministic router."""
+    shape = (width,)
+    if name == "random":
+        return np.array(jax.random.randint(key, shape, 0, n_clusters,
+                                           dtype=jnp.int32))
+    if name == "power_of_two":
+        ka, kb = jax.random.split(key)
+        first = jax.random.randint(ka, shape, 0, n_clusters, dtype=jnp.int32)
+        off = jax.random.randint(kb, shape, 0, max(n_clusters - 1, 1),
+                                 dtype=jnp.int32)
+        return np.array(first), np.array(off)
+    return None
+
+
+def engine_route_draws(name, seed, tick, n_clusters, width):
+    """The draws the JAX fleet engine's router makes in window ``tick`` of
+    its events path (every slice of a window routes from one key)."""
+    step_key = jax.random.fold_in(jax.random.PRNGKey(seed), tick)
+    return router_draws(name, jax.random.fold_in(step_key, n_clusters),
+                        n_clusters, width)
+
+
+@functools.lru_cache(maxsize=None)
+def _fleet_stepper(fcfg, grid: tuple, kind, router_name):
+    from repro.sim import ROUTERS, RouteContext
+    from repro.sim.simulator import _cluster_step_keys
+
+    cfg = fcfg.base
+    core = make_admission_core(cfg, jnp.asarray(grid, jnp.float32), kind)
+    n_c = fcfg.n_clusters
+    caps = jnp.asarray(fcfg.capacities, jnp.float32)
+    router = ROUTERS[router_name]()
+
+    def step(policy, cs, key, stream_t, refresh: bool):
+        if refresh:
+            cs = jax.vmap(core.refresh_aggregates)(cs)
+        keys_c = _cluster_step_keys(key, n_c)
+        events = jax.vmap(lambda k, s: sample_step_events(
+            k, s.params, s.cores, cfg.priors, cfg.dt, alive=s.alive))(
+                keys_c, cs.slots)
+        cs, out = jax.vmap(
+            lambda cap, k, cs_c: core.apply_events(k, cs_c, cap))(
+                caps, keys_c, cs)
+        valid = jnp.arange(cfg.max_arrivals) < stream_t.n_arrivals
+        cand = core.candidates(stream_t)
+        assign = router.route(jax.random.fold_in(key, n_c), RouteContext(
+            cand=cand, c0=stream_t.c0, valid=valid, agg_el=cs.agg_el,
+            agg_vl=cs.agg_vl, util=out.util, capacities=caps, policy=policy))
+        assign = jnp.clip(assign, 0, n_c)
+        mask = valid[None, :] & (assign[None, :] == jnp.arange(n_c)[:, None])
+        cs, accept = jax.vmap(
+            lambda pol_c, cs_c, u_c, m_c: core.decide_batch(
+                pol_c, cs_c, u_c, cand, stream_t, m_c))(
+                    policy, cs, out.util, mask)
+        n_acc = jnp.sum(accept.astype(jnp.float32), axis=1)
+        n_rej = jnp.sum(mask.astype(jnp.float32), axis=1) - n_acc
+        slots, _ = _accumulate_step(cs.slots, out, n_acc, n_rej, cfg.dt)
+        return cs._replace(slots=slots), events
+
+    def run_draws(key, n_c=n_c, width=cfg.max_arrivals):
+        return router_draws(router_name, jax.random.fold_in(key, n_c), n_c,
+                            width)
+
+    steps = {refresh: jax.jit(jax.vmap(functools.partial(step,
+                                                         refresh=refresh)))
+             for refresh in (False, True)}
+    return steps, core.init, run_draws
+
+
+def reference_fleet_draws(fcfg, grid, kind, keys, policies, router_name):
+    """(stream, events, route_draws) of the JAX package's ``make_fleet_run``
+    runs (keys[b], policies[b]) with ``router_name`` (``policies`` with
+    [B, C] leaves, as ``jax.vmap`` of ``fleet_policy`` gives them): the
+    fleet-wide streams (numpy [B, T, A] leaves), each step's ``StepEvents``
+    of every cluster (numpy [B, C, S] leaves: the draws ``apply_events``
+    makes from the step's cluster keys) and each step's router draws
+    (``router_draws`` from ``fold_in(key_t, C)``, [B, A] leaves; None for
+    a deterministic router). The runs are stepped as ``make_fleet_run``
+    steps them (``vmap`` over runs), so their events are those of its
+    trajectories."""
+    from repro.sim import stream_config
+
+    cfg = fcfg.base
+    n_c = fcfg.n_clusters
+    steps, init, run_draws = _fleet_stepper(
+        fcfg, tuple(np.asarray(grid).tolist()), kind, router_name)
+    keys = jnp.asarray(keys)
+    k_stream, k_scan = jax.vmap(jax.random.split, out_axes=1)(keys)
+    stream = jax.vmap(lambda k: draw_arrival_stream(
+        k, stream_config(fcfg)))(k_stream)
+    step_keys = jax.vmap(lambda k: jax.random.split(k, cfg.n_steps))(k_scan)
+    cs = jax.tree.map(
+        lambda x: jnp.broadcast_to(x, (len(keys), n_c) + x.shape), init())
+    events, draws = [], []
+    for t in range(cfg.n_steps):
+        stream_t = jax.tree.map(lambda x: x[:, t], stream)
+        cs, ev = steps[t % cfg.agg_refresh_steps == 0](
+            policies, cs, step_keys[:, t], stream_t)
+        events.append(jax.tree.map(np.asarray, ev))
+        per_run = [run_draws(k) for k in step_keys[:, t]]
+        if per_run[0] is None:
+            draws.append(None)
+        elif isinstance(per_run[0], tuple):
+            draws.append(tuple(np.stack(x) for x in zip(*per_run)))
+        else:
+            draws.append(np.stack(per_run))
+    return jax.tree.map(np.asarray, stream), events, draws
+
+
+def fleet_policies(kind, caps, thetas):
+    """[B, C] JAX fleet policies of ``thetas`` (threshold and rho both
+    theta, as a calibration closure builds them)."""
+    from repro.core import fleet_policy
+
+    return jax.vmap(lambda th: fleet_policy(kind, capacities=caps,
+                                            threshold=th, rho=th))(
+        jnp.asarray(thetas, jnp.float32))
