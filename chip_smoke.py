@@ -141,6 +141,32 @@ time:
                for 600 ticks: its decisions and ``FleetMetrics`` equal
                ``make_fleet_run``'s bit for bit; ticks/s, decisions/s.
 
+ 13. traces  — the trace-driven path: every scenario synthesized at
+               TRACE_FULL (3 years, 1 arrival/h, 65,536 rows, 32 events)
+               on the card and validated, the baseline's latent and
+               observed fits within tests/test_traces.py's tolerances; the
+               Azure sample ingested, fitted (observed) and replayed in a
+               short run; the baseline replayed through ``make_run`` at
+               PAPER_FULL with 16 arrivals a step (4,380 row and 365
+               aggregate launches; its GLOBAL stream built on the card
+               equal to the CPU's bit for bit); ``replay_stream_batch`` of
+               24 traces through ``run_keyed_batch`` for their first 720
+               steps; ``make_importance_plan``
+               at PAPER_FULL (512 probes in batches of 64, quotas 8/8/8;
+               probe seconds, peak device memory), ``simulate_plan`` and
+               ``estimate_from_plan`` (a selected seed's probe stream equal
+               to its run's bit for bit); ``make_trace_ensemble_plan`` over
+               32 replays of 720 steps and ``simulate_trace_plan``;
+               ``calibrate_scenario``
+               (flash crowd, SECOND at rho 0.112) and ``run_drift_protocol``
+               (drift step, ``drift_bench``'s ``quick``) at ``quick``; the
+               fleet replay row at the fleet split for 720 steps; the engine
+               with telemetry and a ``DriftDetector`` for 360 ticks, scraped
+               every 36 (the first scrape, from an empty cluster, warm-up),
+               its null calibrated on 3 stationary replays of the same
+               engine and windows, its snapshots' ``"drift"`` equal to a
+               detector fed the scrapes' observable deltas.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2436,6 +2462,452 @@ def fleet_path(records, single):
     records["moment_curves_agg_belief"]["fleet_runs"] = runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the trace-driven path
+# ---------------------------------------------------------------------------
+
+REPLAY_MAX_ARRIVALS = 16     # the JAX sweep's replay cap (scenarios.py)
+TRACE_BATCH = 24             # phase 13's replayed batch
+TRACE_ENSEMBLE = 32          # phase 13's trace-level plan
+TRACE_DEPTH_STEPS = 720      # depth of the replayed batch and the trace plan
+TRACE_FLEET_STEPS = 720      # phase 13's fleet replay row
+TRACE_ENGINE_TICKS = 360     # phase 13's engine with a drift detector
+TRACE_SCRAPE_TICKS = 36      # ... scraped (a detector window) this often
+TRACE_NULL_REPS = 3          # stationary engine replays behind its null
+BM_CPU_PROBES = 4            # probes whose BM phase 13 repeats on the CPU
+# tests/test_traces.py's round-trip tolerances (its latent and observed
+# fits; the observed path's implied population means)
+FIT_TOL = {"latent": 0.15, "observed": 0.5}
+FIT_MEAN_TOL = 0.25
+
+
+class RecordingSource:
+    """A prior-sampling arrival source that keeps every stream it draws,
+    by the seed of the generator it drew from."""
+
+    def __init__(self):
+        from repro_torch.sim import PriorArrivalSource
+
+        self.inner = PriorArrivalSource()
+        self.seen = {}
+
+    def stream(self, gen, cfg):
+        s = self.inner.stream(gen, cfg)
+        self.seen[gen.initial_seed()] = s
+        return s
+
+    def shares_stream(self, cfg):
+        return self.inner.shares_stream(cfg)
+
+
+def stream_diff(a, b) -> list:
+    """The leaves (by index) at which two streams differ, each with its
+    count of differing elements."""
+    import torch
+
+    return [(i, int((x.cpu() != y.cpu()).sum()))
+            for i, (x, y) in enumerate(zip(_leaves(a), _leaves(b)))
+            if not torch.equal(x.cpu(), y.cpu())]
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def trace_path(records):
+    """Phase 13: the trace-driven path (synthesis and fitting at
+    TRACE_FULL, the Azure sample, one replayed run and a replayed batch at
+    PAPER_FULL, both importance plans, the quick scenario and drift
+    calibrations, the fleet replay row, the engine with a drift
+    detector)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import drift_bench
+    from repro_torch.benchmarks.common import SCALES, grid_for, sim_config
+    from repro_torch.configs import (PAPER_FULL, PAPER_TABLE2, TRACE_FULL)
+    from repro_torch.core import (AZURE_PRIORS, SECOND, fleet_policy,
+                                  make_policy)
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.serve import OnlineAdmissionEngine
+    from repro_torch.sim import (ROUTERS, draw_arrival_stream,
+                                 estimate_from_plan, make_fleet_run,
+                                 make_importance_plan, make_run,
+                                 make_trace_ensemble_plan, run_keyed_batch,
+                                 simulate_plan, simulate_trace_plan,
+                                 split_seeds)
+    from repro_torch.sim import importance as PI
+    from repro_torch.sim.simulator import _steps
+    from repro_torch.traces import (TraceArrivalSource, fit_priors,
+                                    ingest_cortez_csv, n_deployments,
+                                    prior_relative_errors, scenario_names,
+                                    synthesize_scenario, trace_to,
+                                    trace_to_stream, validate_trace)
+    from repro_torch.tuning import (DriftDetector, calibrate_scenario,
+                                    channels_from_obs, null_from_replays,
+                                    replay_stream_batch)
+
+    rho = PAPER_TABLE2["second_rho"]
+    grid = geometric_grid_full()
+    cfg = PAPER_FULL._replace(agg_refresh_steps=12)
+    rcfg = cfg._replace(max_arrivals=REPLAY_MAX_ARRIVALS)
+    # the replayed batch and the trace plan: the first TRACE_DEPTH_STEPS
+    # steps of TRACE_FULL traces (later arrivals lie outside the window)
+    dcfg = rcfg._replace(horizon_hours=TRACE_DEPTH_STEPS * rcfg.dt)
+    policy = make_policy(SECOND, rho=rho, capacity=cfg.capacity)
+    launches = {}
+    out = {}
+
+    def counted(name, n_steps=None):
+        got = dict(K.LAUNCHES)
+        if n_steps is not None:
+            want = dict.fromkeys(got, 0)
+            want.update(moment_curves_belief=n_steps,
+                        moment_curves_agg_belief=n_steps // 12)
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, want {want}")
+        elif not (got["moment_curves_belief"] and
+                  got["moment_curves_agg_belief"]):
+            raise AssertionError(f"{name}: launches {got}")
+        launches[name] = got
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # 1. synthesis of every scenario at TRACE_FULL, and the fits -----------
+    traces = {}
+    for name in scenario_names():
+        tr, wall = timed(lambda: synthesize_scenario(2018, name, TRACE_FULL,
+                                                     device=DEVICE))
+        validate_trace(tr)
+        traces[name] = tr
+        log(f"synthesized {name} at TRACE_FULL: {n_deployments(tr)} "
+            f"arrivals of {TRACE_FULL.max_deployments} rows, "
+            f"{wall * 1e3:.2f} ms")
+    base = traces["baseline"]
+    for source, tol in FIT_TOL.items():
+        (fitted, _), wall = timed(lambda: fit_priors(base, source=source))
+        errs = prior_relative_errors(fitted, AZURE_PRIORS)
+        worst = max(errs, key=errs.get)
+        log(f"fit_priors({source}) on the TRACE_FULL baseline: largest "
+            f"relative error {errs[worst]:.4f} ({worst}; limit {tol}), "
+            f"{wall:.3f} s")
+        if errs[worst] >= tol:
+            raise AssertionError(f"fit {source}: {errs}")
+        if source == "observed":
+            for p in ("mu", "lam", "sig"):
+                want = (getattr(AZURE_PRIORS, f"{p}_shape")
+                        / getattr(AZURE_PRIORS, f"{p}_rate"))
+                got = (getattr(fitted, f"{p}_shape")
+                       / getattr(fitted, f"{p}_rate"))
+                if abs(got / want - 1.0) > FIT_MEAN_TOL:
+                    raise AssertionError(f"observed fit: {p} mean {got}, "
+                                         f"want {want}")
+
+    # 2. the Azure sample: ingest, fit, replay, one short run ---------------
+    sample = ROOT / "tests" / "data" / "azure_cortez_sample.csv"
+    az, diag = ingest_cortez_csv(str(sample), rebucket_dt_hours=6.0,
+                                 device=DEVICE)
+    az_priors, _ = fit_priors(az, source="observed")
+    az_cfg = PAPER_FULL._replace(
+        priors=az_priors, capacity=400.0, max_slots=256,
+        horizon_hours=6.0 * int(float(az.horizon_hours) // 6.0 + 1))
+    az_src = TraceArrivalSource(az)
+    m, wall = timed(lambda: make_run(az_cfg, grid, SECOND,
+                                     arrival_source=az_src, device=DEVICE)(
+        2018, make_policy(SECOND, rho=rho, capacity=az_cfg.capacity)))
+    util = float(m.utilization)
+    log(f"Azure sample: {diag['n_vms']} VMs, {n_deployments(az)} "
+        f"deployments, {diag['n_malformed']} malformed; observed fit "
+        f"{tuple(round(x, 4) for x in az_priors)}; replayed "
+        f"{az_cfg.n_steps} steps on the card in {wall:.2f} s, utilization "
+        f"{util:.4f}, accepted {float(m.arrivals_accepted):.0f}")
+    if not (0.0 < util <= 1.0) or float(m.arrivals_accepted) <= 0:
+        raise AssertionError(f"Azure replay: {m}")
+
+    # 3. one replayed run at PAPER_FULL ------------------------------------
+    src = TraceArrivalSource(base)
+    run = make_run(rcfg, grid, SECOND, arrival_source=src, device=DEVICE)
+    m, wall = timed(lambda: run(2018, policy))
+    counted("replay", rcfg.n_steps)
+    dropped = src.n_dropped(rcfg)
+    for field in m:
+        if not bool(torch.isfinite(field).all()):
+            raise AssertionError("replay: non-finite metrics")
+    on_card, _ = trace_to_stream(base, rcfg)
+    on_cpu, _ = trace_to_stream(trace_to(base, "cpu"), rcfg)
+    diff = stream_diff(on_card, on_cpu)
+    if diff:
+        raise AssertionError("replay: the card's GLOBAL stream differs "
+                             f"from the CPU's at (leaf, elements) {diff}")
+    out["replay"] = dict(steps_per_s=rcfg.n_steps / wall, wall_s=wall,
+                         dropped=dropped,
+                         utilization=float(m.utilization),
+                         failure_rate=float(m.failure_rate))
+    log(f"replayed TRACE_FULL baseline through make_run at PAPER_FULL "
+        f"(max_arrivals {REPLAY_MAX_ARRIVALS}, SECOND rho {rho}): "
+        f"{rcfg.n_steps / wall:.1f} steps/s, {dropped} dropped, utilization "
+        f"{float(m.utilization):.4f}, failure rate "
+        f"{float(m.failure_rate):.3e}; launches {launches['replay']}; the "
+        "GLOBAL stream built on the card equals the CPU's bit for bit")
+
+    # 4. a replayed batch: 24 runs, each on its own trace ------------------
+    drun = make_run(dcfg, grid, SECOND, device=DEVICE)
+    (streams, seeds, dropped), wall_b = timed(lambda: replay_stream_batch(
+        11, 12, "baseline", TRACE_FULL, dcfg, TRACE_BATCH, device=DEVICE))
+    mb, wall = timed(lambda: run_keyed_batch(drun, seeds, policy,
+                                             streams=streams))
+    counted("replay batch", dcfg.n_steps)
+    util = mb.utilization.cpu()
+    if not bool(((util > 0) & (util <= 1)).all()):
+        raise AssertionError(f"replay batch: utilizations {util}")
+    rate = TRACE_BATCH * dcfg.n_steps / wall
+    out["replay_batch"] = dict(runs_steps_per_s=rate, wall_s=wall,
+                               build_s=wall_b, dropped=dropped,
+                               n_steps=dcfg.n_steps)
+    log(f"replay_stream_batch of {TRACE_BATCH} traces ({wall_b:.2f} s to "
+        f"synthesize and scatter, {dropped} dropped) through "
+        f"run_keyed_batch for {dcfg.n_steps} steps: {wall:.2f} s, "
+        f"{rate:.1f} runs x steps/s; utilization mean "
+        f"{float(util.mean()):.4f}")
+    del streams, mb
+
+    # 5. the seed-level importance plan at PAPER_FULL -----------------------
+    torch.cuda.reset_peak_memory_stats()
+    plan, probe_s = timed(lambda: make_importance_plan(
+        2018, cfg, grid, quotas=(8, 8, 8), n_probe=512, probe_batch=64,
+        device=DEVICE))
+    peak = torch.cuda.max_memory_allocated()
+    bm = plan.bm_probe
+    n_nan = int(np.isnan(bm).sum())
+    q = np.nanquantile(bm, [0.0, 0.5, 0.9, 0.99, 1.0])
+    # the same probes' BM on the CPU: the point-mass curves' float32
+    # log-gamma differs by device (ROADMAP Queue C)
+    ratio = bm[:BM_CPU_PROBES] / np.asarray(
+        [cpu_badness(s, cfg, grid) for s in split_seeds(2018, BM_CPU_PROBES)])
+    rec = RecordingSource()
+    plan_run = make_run(cfg, grid, SECOND, arrival_source=rec,
+                        device=DEVICE)
+    mp, wall = timed(lambda: simulate_plan(plan_run, plan, policy))
+    counted("seed plan", cfg.n_steps)
+    est = estimate_from_plan(plan, mp)
+    first = int(plan.keys[0])
+    probe = PI._probe_streams([first], cfg, torch.device(DEVICE), None)
+    diff = stream_diff(_unbatch(probe), rec.seen[first])
+    if diff:
+        raise AssertionError("seed plan: a probe's stream differs from its "
+                             f"run's at (leaf, elements) {diff}")
+    out["seed_plan"] = dict(p_bucket=plan.p_bucket.tolist(),
+                            bm_quantiles=q.tolist(), bm_nan=n_nan,
+                            bm_card_over_cpu=ratio.tolist(), probe_s=probe_s,
+                            peak_bytes=peak, simulate_s=wall, **est)
+    log(f"make_importance_plan at PAPER_FULL (512 probes, batches of 64, "
+        f"quotas 8/8/8): {probe_s:.2f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB; p_hat {np.round(plan.p_bucket, 4).tolist()}"
+        f"; BM min/median/p90/p99/max {np.round(q, 1).tolist()} (edges "
+        f"{1.25 * cfg.capacity:.0f}, {1.5 * cfg.capacity:.0f}), NaN in "
+        f"{n_nan} probes; the first {BM_CPU_PROBES} probes' BM on the card "
+        f"over the same streams' on the CPU {np.round(ratio, 4).tolist()}; "
+        f"simulate_plan of {len(plan.keys)} runs {wall:.2f} s; estimate "
+        f"utilization {est['utilization']:.4f}, SLA {est['sla_fail']:.3e}; "
+        f"seed {first}'s probe stream equals its run's bit for bit")
+
+    # 6. the trace-level plan over 32 baseline replays ----------------------
+    (ens, _, _), _ = timed(lambda: replay_stream_batch(
+        21, 22, "baseline", TRACE_FULL, dcfg, TRACE_ENSEMBLE,
+        device=DEVICE))
+    tplan, plan_s = timed(lambda: make_trace_ensemble_plan(
+        2018, dcfg, grid, ens, quotas=(4, 2, 2)))
+    mt, wall = timed(lambda: simulate_trace_plan(drun, tplan, ens, policy))
+    counted("trace plan", dcfg.n_steps)
+    test = estimate_from_plan(tplan, mt)
+    out["trace_plan"] = dict(p_bucket=tplan.p_bucket.tolist(),
+                             plan_s=plan_s, simulate_s=wall,
+                             n_steps=dcfg.n_steps, **test)
+    log(f"make_trace_ensemble_plan over {TRACE_ENSEMBLE} replays of "
+        f"{dcfg.n_steps} steps: {plan_s:.2f} s, p_hat {np.round(tplan.p_bucket, 4).tolist()}; "
+        f"simulate_trace_plan of {len(tplan.keys)} runs {wall:.2f} s; "
+        f"utilization {test['utilization']:.4f}, SLA "
+        f"{test['sla_fail']:.3e}")
+    del ens, mt
+
+    # 7. the quick calibrations: a scenario and the drift protocol --------
+    scale = SCALES["quick"]
+    qcfg = sim_config(scale)._replace(max_arrivals=REPLAY_MAX_ARRIVALS)
+    qgrid = grid_for(scale, qcfg, device=DEVICE)
+
+    def scenario_cal():
+        from repro_torch.benchmarks.scenarios import trace_spec_for
+
+        streams, seeds, _ = replay_stream_batch(
+            100, 500, "flash_crowd", trace_spec_for(qcfg), qcfg,
+            scale.n_runs, device=DEVICE)
+        return calibrate_scenario(
+            make_run(qcfg, qgrid, SECOND, device=DEVICE), SECOND,
+            "flash_crowd", streams, seeds, capacity=qcfg.capacity,
+            tau=scale.tau, stationary_theta=rho,
+            n_grid=scale.n_thresholds, max_stages=1)
+
+    cal, wall = timed(scenario_cal)
+    counted("scenario calibration")
+    out["scenario_calibration"] = dict(
+        util_stat=cal.stationary_util, sla_stat=cal.stationary_sla,
+        theta_ret=cal.retuned.theta, util_ret=cal.retuned.utilization,
+        sla_ret=cal.retuned.sla_fail, feasible=cal.retuned.feasible,
+        n_sims=cal.retuned.n_sims, seconds=wall)
+    log(f"calibrate_scenario(flash_crowd, SECOND) at quick: stationary rho "
+        f"{rho}: utilization {cal.stationary_util:.4f}, SLA "
+        f"{cal.stationary_sla:.2e}; re-tuned rho {cal.retuned.theta:.4g}: "
+        f"utilization {cal.retuned.utilization:.4f}, SLA "
+        f"{cal.retuned.sla_fail:.2e} (tau {scale.tau:g}, feasible "
+        f"{cal.retuned.feasible}); {cal.retuned.n_sims} simulations, "
+        f"{wall:.1f} s")
+    (res, _), wall = timed(lambda: drift_bench.protocol("quick", 0, DEVICE))
+    counted("drift protocol")
+    out["drift_protocol"] = dict(drift_bench.summary(res, wall))
+    log(f"run_drift_protocol(drift_step, SECOND) at drift_bench's quick: "
+        f"theta0 {res.theta0:.4g}; detector fired {res.report.fired} at "
+        f"window {res.report.fired_window} (onset {res.onset_window}, "
+        f"threshold {res.null.threshold:.3f}); regret never "
+        f"{res.never.regret:.4f}, triggered {res.triggered.regret:.4f} "
+        f"(oracle utilization {res.oracle.util:.4f}, within CI "
+        f"{res.within_ci}); {res.n_sims} simulations, {wall:.1f} s")
+    for line in drift_bench.rows(res, wall, "quick"):
+        log("  " + line)
+
+    # 8. the fleet replay row at the PAPER_FULL fleet split ---------------
+    fcfg = fleet_config(TRACE_FLEET_STEPS)
+    fcfg = fcfg._replace(base=fcfg.base._replace(
+        max_arrivals=REPLAY_MAX_ARRIVALS))
+    fsrc = TraceArrivalSource(base)
+    frun = make_fleet_run(fcfg, grid, SECOND,
+                          router=ROUTERS["least_utilized"](),
+                          arrival_source=fsrc, device=DEVICE)
+    fpol = fleet_policy(SECOND, capacities=fcfg.capacities, rho=rho)
+    mf, wall = timed(lambda: frun(2018, fpol))
+    counted("fleet replay", TRACE_FLEET_STEPS)
+    out["fleet_replay"] = dict(utilization=float(mf.utilization),
+                               failure_rate=float(mf.failure_rate),
+                               dropped=fsrc.n_dropped(fcfg),
+                               steps_per_s=TRACE_FLEET_STEPS / wall)
+    log(f"scenarios/fleet/replay_least_utilized at the PAPER_FULL fleet "
+        f"split ({TRACE_FLEET_STEPS} steps): utilization "
+        f"{float(mf.utilization):.4f}, failure rate "
+        f"{float(mf.failure_rate):.3e}, dropped {fsrc.n_dropped(fcfg)}, "
+        f"{TRACE_FLEET_STEPS / wall:.1f} steps/s")
+
+    # 9. the engine at PAPER_FULL with telemetry and a drift detector -----
+    # Its null is calibrated on this engine's own live windows: stationary
+    # replays of the same engine, scraped as the checked run is. (The drift
+    # protocol's null is over trace windows, whose channels are
+    # per-deployment means, not the live ratio rates of channels_from_obs.)
+    ecfg = cfg._replace(telemetry=True)
+    lanes = np.arange(ecfg.max_arrivals)
+
+    def engine(seed, detector=None):
+        """The engine on seed's stationary stream: each scrape's channel
+        values (from the telemetry obs deltas) and its ``"drift"``. The
+        first scrape, from an empty cluster, is warm-up: the detector is
+        reset after it, and its window is left out."""
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        stream = draw_arrival_stream(gen, ecfg)
+        n_arr = stream.n_arrivals.cpu().numpy()
+        steps = _steps(stream)
+        eng = OnlineAdmissionEngine(ecfg, grid, SECOND, policy,
+                                    micro_batch=8, drift_detector=detector,
+                                    device=DEVICE)
+        windows, drifts, prev = [], [], {}
+        for t in range(TRACE_ENGINE_TICKS):
+            eng.tick(gen=gen)
+            eng.decide_slice(steps[t], lanes < n_arr[t])
+            if (t + 1) % TRACE_SCRAPE_TICKS == 0:
+                snap = eng.metrics_snapshot()
+                obs = snap["telemetry"]["obs"]
+                windows.append(channels_from_obs(
+                    {k: obs[k] - prev.get(k, 0.0) for k in obs}))
+                prev = dict(obs)
+                drifts.append(snap.get("drift"))
+                if detector is not None and len(drifts) == 1:
+                    detector.reset()
+        return windows[1:], drifts[1:]
+
+    reps, null_s = timed(lambda: [engine(s)[0] for s in
+                                  split_seeds(2019, TRACE_NULL_REPS)])
+    counted("engine null", TRACE_NULL_REPS * TRACE_ENGINE_TICKS)
+    null = null_from_replays(reps)
+    (windows, drifts), wall = timed(lambda: engine(2018,
+                                                   DriftDetector(null)))
+    counted("engine", TRACE_ENGINE_TICKS)
+    # the engine's detector state after each scrape equals a detector fed
+    # the same scrapes' observable deltas
+    det = DriftDetector(null)
+    want = []
+    for v in windows:
+        det.update(v)
+        want.append(det.snapshot())
+    if drifts != want:
+        raise AssertionError(f"engine: drift {drifts}, want {want}")
+    drift = drifts[-1]
+    if (drift["n_windows"] != TRACE_ENGINE_TICKS // TRACE_SCRAPE_TICKS - 1
+            or not math.isfinite(drift["stat"])):
+        raise AssertionError(f"engine: drift {drift}")
+    out["engine"] = dict(ticks_per_s=TRACE_ENGINE_TICKS / wall,
+                         null_s=null_s, null_mean=null.mean,
+                         null_std=null.std, drift=drift,
+                         stats=[d["stat"] for d in drifts],
+                         null_mu_by_window=np.mean(
+                             [[v["mu"] for v in r] for r in reps],
+                             axis=0).tolist())
+    log(f"engine at PAPER_FULL with telemetry and a DriftDetector, "
+        f"{TRACE_ENGINE_TICKS} ticks scraped every {TRACE_SCRAPE_TICKS} "
+        f"(the first scrape warm-up): "
+        f"{TRACE_ENGINE_TICKS / wall:.1f} ticks/s; null from "
+        f"{TRACE_NULL_REPS} stationary replays of the engine ({null_s:.1f} "
+        f"s), mean {null.mean}, std {null.std}; on a fresh stationary "
+        f"stream: drift {drift['stat']:.4f} against threshold "
+        f"{null.threshold:.4f}, fired {drift['fired']} (window "
+        f"{drift['fired_window']}); every scrape's drift state equals a "
+        "detector fed the scrapes' observable deltas")
+
+    for name in ("moment_curves_belief", "moment_curves_agg_belief"):
+        records[name]["launches_traces"] = {
+            k: v[name] for k, v in launches.items()}
+    log("phase 13 numbers: " + json.dumps(out, default=float))
+
+
+def cpu_badness(seed, cfg, grid):
+    """The BM of the probe of ``seed`` with its point-mass curves evaluated
+    on the CPU: the card's stream and lifetime clocks, the CPU's i^x."""
+    import torch
+    from repro_torch.sim import importance as PI
+    from repro_torch.sim.core import tree_to
+
+    dev = torch.device(DEVICE)
+    stream = _unbatch(PI._probe_streams([seed], cfg, dev, None))
+    maxlife = PI._lifetimes([PI.life_generator(seed, dev)],
+                            stream.params.mu.reshape(1, -1), cfg)
+    i_x = PI.point_mass_ix(tree_to(stream, "cpu"), cfg, grid.cpu())
+    occurs = (torch.arange(cfg.max_arrivals)
+              < stream.n_arrivals.cpu()[:, None]).reshape(1, -1)
+    return float(PI.greedy_schedule(i_x[None].numpy(), maxlife.cpu().numpy(),
+                                    occurs.numpy(), cfg)[0])
+
+
+def _unbatch(stream):
+    """The one stream of a stacked batch of one."""
+    if isinstance(stream, tuple):
+        return type(stream)(*map(_unbatch, stream))
+    return stream[0]
+
+
 def main():
     import torch
 
@@ -2511,6 +2983,9 @@ def main():
 
     with phase("12. the routed fleet at PAPER_FULL"):
         fleet_path(records, single)
+
+    with phase("13. the trace-driven path"):
+        trace_path(records)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

@@ -14,9 +14,12 @@ spread of the clusters' utilizations.
     python -m repro_torch.benchmarks.fleet_bench --scale quick
     python -m repro_torch.benchmarks.fleet_bench --scale tiny --device cpu
 
-prints one CSV row a router (the JAX package's ``scenarios/fleet/*`` rows,
-without its trace-replay row) and, with ``--json PATH``, writes every
-number of the rows to PATH.
+prints one CSV row a router and the trace-replay row (the JAX package's
+``scenarios/fleet/*`` rows) and, with ``--json PATH``, writes every number
+of the rows to PATH. The replay row replays a synthesized baseline trace
+into the fleet at the least-utilized router's tuned rho: arrivals come
+from the trace (at most ``REPLAY_MAX_ARRIVALS`` a step), the router still
+decides the cluster.
 """
 from __future__ import annotations
 
@@ -25,9 +28,13 @@ import json
 import time
 
 from ..core import SECOND, fleet_policy
-from ..sim import ROUTERS, FleetConfig, make_fleet_run, split_seeds
+from ..sim import (ROUTERS, FleetConfig, make_fleet_run, sla_failure_rate,
+                   split_seeds)
+from ..sim.simulator import _seed_word
+from ..traces import TraceArrivalSource, synthesize_scenario
 from ..tuning import calibrate
 from .common import SCALES, csv_row, grid_for, sim_config
+from .scenarios import REPLAY_MAX_ARRIVALS, trace_spec_for
 
 #: heterogeneous fleet split of the preset capacity (a big, two mid, a small
 #: cluster) — heterogeneity is what separates capacity-aware routers from
@@ -79,8 +86,37 @@ def results(scale_name: str = "tiny", seed: int = 0,
     return out
 
 
-def rows(res: dict) -> list:
-    """One CSV row a router, as the JAX package's ``scenarios/fleet/*``."""
+def replay(scale_name: str, rho: float, seed: int = 0,
+           device="cuda") -> dict:
+    """A synthesized baseline trace replayed INTO the preset's fleet
+    (arrivals routed live by the least-utilized router) at ``rho``, over
+    ``results``' runs."""
+    scale = SCALES[scale_name]
+    fcfg = fleet_config(scale_name)
+    grid = grid_for(scale, fcfg.base)
+    seeds = split_seeds(seed, scale.n_runs)
+    policy_fn = lambda th: fleet_policy(SECOND, capacities=fcfg.capacities,
+                                        rho=th)
+    t0 = time.perf_counter()
+    trace = synthesize_scenario(_seed_word(seed, 7), "baseline",
+                                trace_spec_for(fcfg.base), device=device)
+    source = TraceArrivalSource(trace)
+    rcfg = FleetConfig(base=fcfg.base._replace(
+        max_arrivals=REPLAY_MAX_ARRIVALS), capacities=fcfg.capacities)
+    run_fn = make_fleet_run(rcfg, grid, SECOND,
+                            router=ROUTERS["least_utilized"](),
+                            arrival_source=source, device=device)
+    m = run_fn(seeds, policy_fn(rho))
+    return {"utilization": float(m.utilization.mean()),
+            "sla_fail": sla_failure_rate(m.failed_requests.cpu().numpy(),
+                                         m.total_requests.cpu().numpy()),
+            "rho": rho, "dropped": source.n_dropped(rcfg),
+            "n_sims": len(seeds), "seconds": time.perf_counter() - t0}
+
+
+def rows(res: dict, rep: dict) -> list:
+    """One CSV row a router (``results``) and the replay row (``replay``),
+    as the JAX package's ``scenarios/fleet/*``."""
     return [csv_row(
         f"scenarios/fleet/{name}", 1e6 * r["seconds"],
         f"util={r['utilization']:.4f} sla={r['sla_fail']:.2e}"
@@ -88,7 +124,10 @@ def rows(res: dict) -> list:
         f" rej_all={r['rej_all']:.1f}"
         f" util_spread={r['util_spread']:.3f}"
         f" n_clusters={r['n_clusters']} tau={r['tau']:g}")
-        for name, r in res.items()]
+        for name, r in res.items()] + [csv_row(
+            "scenarios/fleet/replay_least_utilized", 1e6 * rep["seconds"],
+            f"util={rep['utilization']:.4f} sla={rep['sla_fail']:.2e}"
+            f" rho={rep['rho']:.4g} dropped={rep['dropped']}")]
 
 
 def main(argv=None):
@@ -101,14 +140,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     res = results(args.scale, args.seed, args.device)
+    rep = replay(args.scale, res["least_utilized"]["rho"], args.seed,
+                 args.device)
     wall = time.perf_counter() - t0
-    for row in rows(res):
+    for row in rows(res, rep):
         print(row, flush=True)
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:
             json.dump({"scale": args.scale, "seed": args.seed,
                        "device": args.device, "wall_s": wall,
-                       "routers": res}, f, indent=1)
+                       "routers": res, "replay": rep}, f, indent=1)
 
 
 if __name__ == "__main__":

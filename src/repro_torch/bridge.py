@@ -2,9 +2,10 @@
 
 The admission system has no weights: what crosses is state, inputs and
 configurations, as NamedTuples (a fleet's ``FleetConfig``, its [C]
-policies and [C]-leading core states and ``FleetMetrics`` too). ``from_reference(tree, device)`` takes one of the JAX package's
-NamedTuples whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray,
-x)``) and returns the port's NamedTuple of the same name, with tensors on
+policies and [C]-leading core states and ``FleetMetrics`` too, and a
+``WorkloadTrace``). ``from_reference(tree, device)`` takes one of the JAX
+package's NamedTuples whose leaves are numpy arrays (e.g.
+``jax.tree.map(np.asarray, x)``) and returns the port's NamedTuple of the same name, with tensors on
 ``device``. The two are matched by class name and ``_fields``; the LM's
 ``KVCache`` crosses the same way. ``to_numpy(tree)`` turns a port
 NamedTuple's tensors back into numpy arrays. The LM scaffold has weights:
@@ -29,12 +30,13 @@ from .sim.core import (ArrivalStream, CoreState, FleetConfig, SimConfig,
                        SimState)
 from .sim.routing import RouteContext
 from .sim.simulator import FleetMetrics, RunMetrics
+from .traces.schema import ScaleoutEvents, WorkloadTrace
 
 PORTED = {cls.__name__: cls for cls in (
     GammaBelief, DeploymentParams, ArrivalStream, SimState, CoreState,
     StepEvents, PolicyParams, PopulationPriors, MomentCurves, KVCache,
     PseudoObservations, SimConfig, FleetConfig, RunMetrics, FleetMetrics,
-    RouteContext, TelemetryState)}
+    RouteContext, TelemetryState, WorkloadTrace, ScaleoutEvents)}
 
 
 def _is_namedtuple(x) -> bool:

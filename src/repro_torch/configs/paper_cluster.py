@@ -4,9 +4,11 @@
 3-year horizon, SLA 0.01%). ``PAPER_CPU`` is the down-scale the JAX
 package's default benchmarks use, keeping the paper's regime (cluster much
 larger than any deployment). Both use the fitted Azure priors of Table 1.
+``TRACE_FULL`` and ``TRACE_CPU`` are their synthetic-trace counterparts.
 """
 from ..core.processes import AZURE_PRIORS
 from ..sim.core import SimConfig
+from ..traces.synth import TraceSpec
 
 #: paper §5.2, verbatim scale
 PAPER_FULL = SimConfig(
@@ -27,6 +29,25 @@ PAPER_CPU = SimConfig(
     dt=12.0,
     max_slots=768,
     max_arrivals=5,
+    priors=AZURE_PRIORS,
+)
+
+#: synthetic-trace counterparts of the presets (repro_torch.traces): capacity
+#: is sized ~2x the expected arrival count so bursty scenarios (flash crowds)
+#: never clip against the columnar buffer.
+TRACE_FULL = TraceSpec(
+    horizon_hours=PAPER_FULL.horizon_hours,
+    arrival_rate=PAPER_FULL.arrival_rate,
+    max_deployments=65_536,
+    max_events=32,
+    priors=AZURE_PRIORS,
+)
+
+TRACE_CPU = TraceSpec(
+    horizon_hours=PAPER_CPU.horizon_hours,
+    arrival_rate=PAPER_CPU.arrival_rate,
+    max_deployments=4_096,
+    max_events=16,
     priors=AZURE_PRIORS,
 )
 

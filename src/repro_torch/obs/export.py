@@ -155,7 +155,8 @@ def snapshot_to_prometheus(snap: dict) -> str:
     Device-side telemetry counters become ``repro_admission_*`` counters and
     the occupancy/staleness histograms become gauges per bin; the host-side
     engine histograms (decision latency, flush batch size) are exposed as
-    native Prometheus histograms plus queue-depth / pump-idle gauges.
+    native Prometheus histograms plus queue-depth / pump-idle gauges. A
+    drift detector's state (``snap["drift"]``) becomes ``drift_*`` gauges.
     """
     mets: list[Metric] = []
 
@@ -218,6 +219,20 @@ def snapshot_to_prometheus(snap: dict) -> str:
             gauge("cluster_admitted_count", "Admissions per cluster",
                   [({"cluster": c}, v)
                    for c, v in enumerate(pc["n_admit"])])
+
+    drift = snap.get("drift")
+    if drift:
+        gauge("drift_stat", "Drift detector decision statistic",
+              [({}, drift["stat"])])
+        gauge("drift_threshold", "Drift detector firing threshold",
+              [({}, drift["threshold"])])
+        gauge("drift_fired", "Drift detector fired (latched)",
+              [({}, drift["fired"])])
+        gauge("drift_windows", "Detector windows seen (one per scrape)",
+              [({}, drift["n_windows"])])
+        gauge("drift_channel_stat", "Per-channel CUSUM statistic",
+              [({"channel": c}, v)
+               for c, v in drift["channel_stats"].items()])
     return render_prometheus(mets)
 
 

@@ -40,8 +40,8 @@ them: ``tick(gen=...)`` draws each cluster's events from its own generator
 (``sim.simulator.fleet_generators``), and a micro-batch's curves are
 evaluated once for every cluster.
 
-Left out, each raising ``NotImplementedError`` that names its ROADMAP
-Queue A item: ``shards=`` (item 5, the mesh), ``drift_detector=`` (item 8).
+Left out, raising ``NotImplementedError`` that names its ROADMAP Queue A
+item: ``shards=`` (item 5, the mesh).
 """
 from __future__ import annotations
 
@@ -193,7 +193,9 @@ class OnlineAdmissionEngine:
     daemon's ``/metrics`` endpoint serves. An attached
     ``obs.tracing.DecisionTracer`` receives one structured record per
     ``submit``-path decision, with the policy score from the traced decide
-    path.
+    path. An attached ``tuning.drift.DriftDetector`` (``drift_detector=``,
+    which needs ``cfg.telemetry``) is fed the between-scrape observable
+    deltas so prior drift surfaces on the same endpoint.
     """
 
     def __init__(self, cfg, grid, policy_kind: int, policy: PolicyParams, *,
@@ -213,10 +215,6 @@ class OnlineAdmissionEngine:
         if shards is not None and int(shards) != 1:
             raise NotImplementedError("shards= " + _NOT_PORTED.format(
                 "5 (mesh)"))
-        if drift_detector is not None:
-            raise NotImplementedError(
-                "drift_detector= " + _NOT_PORTED.format(
-                    "8 (tuning/drift.py)"))
         base = cfg.base if self.fleet else cfg
         if scale is not None:
             from ..tuning.kcurve import pick_agg_refresh
@@ -257,6 +255,16 @@ class OnlineAdmissionEngine:
                                       device=self.device)
             self.router = LeastUtilizedRouter() if router is None else router
             self.policy = broadcast_policy(self.policy, self.n_c)
+
+        # live drift detection: a tuning.drift.DriftDetector fed the obs
+        # deltas between metrics_snapshot() scrapes (one detector window per
+        # scrape)
+        if drift_detector is not None and not base.telemetry:
+            raise ValueError("drift_detector requires cfg.telemetry=True "
+                             "(the detector consumes the telemetry rider's "
+                             "observable totals)")
+        self.drift = drift_detector
+        self._drift_prev_obs: Optional[dict] = None
 
         # -- engine state ---------------------------------------------------
         with self._on_device():
@@ -721,6 +729,11 @@ class OnlineAdmissionEngine:
         decision-latency / flush-batch-size host histograms, and (with
         ``cfg.telemetry``) the device telemetry rider's summary.
 
+        With a ``drift_detector`` attached, each scrape additionally feeds
+        the detector one window of observable deltas (cumulative telemetry
+        obs now minus the previous scrape — so the scrape cadence defines
+        the detector window) and exports its state under ``"drift"``.
+
         Unlike ``metrics()`` this never closes the open window, never
         flushes, and never synchronizes with the pump: it holds the state
         lock only long enough to enqueue a clone of the rider (on the
@@ -752,6 +765,17 @@ class OnlineAdmissionEngine:
         if tel_copy is not None:
             with self._on_device():
                 snap["telemetry"] = telemetry_summary(tel_copy)
+            if self.drift is not None:
+                from ..tuning.drift import channels_from_obs
+
+                obs = snap["telemetry"]["obs"]
+                with self._state_lock:
+                    prev = self._drift_prev_obs
+                    delta = (obs if prev is None else
+                             {k: obs[k] - prev.get(k, 0.0) for k in obs})
+                    self._drift_prev_obs = dict(obs)
+                    self.drift.update(channels_from_obs(delta))
+                    snap["drift"] = self.drift.snapshot()
         return snap
 
 

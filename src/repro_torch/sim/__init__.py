@@ -3,7 +3,9 @@ the single-cluster ``make_run`` loop over it (one run or a batch of runs),
 the routed multi-cluster fleet (``make_fleet_run`` and the routers of
 ``sim.routing``), and the run metrics (BCa intervals, SLA accounting).
 Arrivals' priors follow ``SimConfig.prior_mode``: GLOBAL, PSEUDO (§6) or
-the §7 type mixtures MIX_LABELED and MIX_UNLABELED."""
+the §7 type mixtures MIX_LABELED and MIX_UNLABELED. Appendix D's importance
+sampling (``sim.importance``) buckets runs, or replayed traces, by their
+badness measure."""
 from .core import (AGG_FUSED, AGG_KERNEL, AGG_REFERENCE, GLOBAL, MIX_LABELED,
                    MIX_UNLABELED, PSEUDO, AdmissionCore, ArrivalSource,
                    ArrivalStream, CoreState, FleetConfig, PriorArrivalSource,
@@ -15,6 +17,11 @@ from .metrics import (CI, bca_ci, fleet_sla_failure_rate, fleet_utilization,
 from .routing import (ROUTERS, LeastUtilizedRouter, PowerOfTwoRouter,
                       RandomRouter, RouteContext, Router,
                       ThresholdCascadeRouter)
+from .importance import (ImportancePlan, TraceEnsemblePlan, badness_measure,
+                         estimate_from_plan, make_importance_plan,
+                         make_trace_ensemble_plan, plan_from_badness,
+                         rejection_q, simulate_plan, simulate_trace_plan,
+                         stream_badness, trace_plan_from_badness)
 from .simulator import (FleetMetrics, RunMetrics, broadcast_policy,
                         fleet_generators, make_fleet_run, make_run, run_batch,
                         run_keyed_batch, split_seeds)
@@ -31,4 +38,8 @@ __all__ = [
     "make_admission_core", "make_config", "make_fleet_config",
     "make_fleet_run", "make_run", "run_batch", "run_keyed_batch",
     "sla_failure_rate", "split_seeds", "stream_config", "weighted_mean",
+    "ImportancePlan", "TraceEnsemblePlan", "badness_measure",
+    "estimate_from_plan", "make_importance_plan", "make_trace_ensemble_plan",
+    "plan_from_badness", "rejection_q", "simulate_plan",
+    "simulate_trace_plan", "stream_badness", "trace_plan_from_badness",
 ]

@@ -243,6 +243,11 @@ class ArrivalSource:
     def stream(self, gen: torch.Generator, cfg: SimConfig) -> "ArrivalStream":
         raise NotImplementedError
 
+    def shares_stream(self, cfg: SimConfig) -> bool:
+        """True when ``stream`` draws nothing from its generator, so that a
+        batch may build it once for every run."""
+        return False
+
 
 class PriorArrivalSource(ArrivalSource):
     """Draw every arrival from the population priors (paper §5 default)."""

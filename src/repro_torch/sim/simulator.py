@@ -202,12 +202,20 @@ def _run_stream(source: ArrivalSource, cfg: SimConfig, gens: list,
     """A run's arrival stream on ``device``, its step axis first: ``stream``
     as given ([R, T, ...] moved to [T, R, ...] for a batch, so that a
     step's slice is [R, A]), or drawn by ``source`` from each run's
-    generator in ``gens``."""
+    generator in ``gens`` (once for the batch when the source
+    ``shares_stream``: it draws nothing)."""
     if stream is not None:
         stream = tree_to(stream, device)
         if batch:
             stream = _tree_map(lambda x: x.movedim(0, 1).contiguous(), stream)
         return stream
+    if batch and source.shares_stream(cfg):
+        # a replayed trace's stream does not depend on the generator: build
+        # it once and give every run a copy
+        return _tree_map(
+            lambda x: x.unsqueeze(1).expand(
+                x.shape[0], len(gens), *x.shape[1:]).contiguous(),
+            source.stream(gens[0], cfg))
     if batch:
         return _tree_map(lambda *xs: torch.stack(xs, dim=1),
                          *(source.stream(g, cfg) for g in gens))

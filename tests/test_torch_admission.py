@@ -565,6 +565,14 @@ def test_naive_lane_refreshes_every_request():
     (dict(drift_detector=object()), "item 8"),
 ])
 def test_unported_options_raise(kwargs, match):
+    """Options left out raise ``NotImplementedError`` naming their Queue A
+    item. Item 8's ``drift_detector=`` is ported since
+    (``tests/test_torch_drift.py``): the engine now refuses it only
+    without ``cfg.telemetry``, as the JAX engine does."""
+    if match == "item 8":
+        with pytest.raises(ValueError, match="telemetry"):
+            _engine(PSMALL, **kwargs)
+        return
     with pytest.raises(NotImplementedError, match=match):
         _engine(PSMALL, **kwargs)
 

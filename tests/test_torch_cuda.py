@@ -652,3 +652,98 @@ def test_small_lm_on_card_matches_cpu(card):
                                                   caches[d])
         torch.testing.assert_close(out[card].cpu(), out["cpu"], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the trace-driven path on the card
+# ---------------------------------------------------------------------------
+
+def _trace_cfg():
+    return make_config(capacity=400.0, arrival_rate=0.3,
+                       horizon_hours=60 * 24.0, dt=6.0, max_slots=128,
+                       max_arrivals=16, d_points=8)
+
+
+def _trace(device):
+    from repro_torch.traces import TraceSpec, synthesize_scenario
+
+    spec = TraceSpec(horizon_hours=60 * 24.0, arrival_rate=0.3,
+                     max_deployments=1024, max_events=8)
+    return synthesize_scenario(3, "batched", spec, device=device)
+
+
+def _lam_b_rtol(bel):
+    """rtol 2e-6 plus 4 float32 ulps of each term of log E[mu^nu] =
+    lgamma(a + nu) - lgamma(a) - nu log b (``tests/test_torch_priors.py``'s
+    bound for two lgamma implementations)."""
+    a, b = (x.double().cpu() for x in (bel.mu_a, bel.mu_b))
+    nu = AZURE_PRIORS.nu
+    scale = (torch.lgamma(a + nu).abs() + torch.lgamma(a).abs()
+             + (nu * torch.log(b)).abs())
+    return 2e-6 + 4 * 2.0**-23 * scale
+
+
+def test_replay_stream_on_card_equals_cpu(card):
+    """GLOBAL replay is exact on either device; PSEUDO-observed too but
+    for ``lam_b``, which adds E[mu^nu] through each device's lgammaf (held
+    to ``_lam_b_rtol``)."""
+    from repro_torch.sim import PSEUDO
+    from repro_torch.traces import trace_to, trace_to_stream
+
+    trace = _trace("cpu")
+    cfg = _trace_cfg()
+    for c in (cfg, cfg._replace(prior_mode=PSEUDO, n_pseudo_obs=1)):
+        got, g_drop = trace_to_stream(trace_to(trace, card), c,
+                                      pseudo_source="observed")
+        want, w_drop = trace_to_stream(trace, c, pseudo_source="observed")
+        assert int(g_drop) == int(w_drop)
+        for part in ("params", "c0", "n_arrivals", "bel", "bel_alt"):
+            g, w = getattr(got, part), getattr(want, part)
+            for name, x, y in zip(getattr(g, "_fields", (part,)),
+                                  g if isinstance(g, tuple) else (g,),
+                                  w if isinstance(w, tuple) else (w,)):
+                if name == "lam_b" and c.prior_mode == PSEUDO:
+                    rel = (x.cpu().double() - y.double()).abs() / y.abs()
+                    assert bool((rel <= _lam_b_rtol(g)).all()), part
+                else:
+                    assert torch.equal(x.cpu(), y), (part, name)
+
+
+def test_replayed_batch_on_card_equals_runs_alone(card):
+    from repro_torch.traces import TraceArrivalSource
+
+    cfg = _trace_cfg()
+    source = TraceArrivalSource(_trace(card))
+    run = make_run(cfg, geometric_grid(6.0, 3 * cfg.horizon_hours, 12,
+                                       device=card), SECOND,
+                   arrival_source=source, device=card)
+    policy = make_policy(SECOND, rho=0.05, capacity=cfg.capacity)
+    batch = run([1, 2, 1], policy)
+    for r, seed in enumerate([1, 2, 1]):
+        alone = run(seed, policy)
+        for name in alone._fields:
+            assert torch.equal(getattr(batch, name)[r],
+                               getattr(alone, name)), (seed, name)
+
+
+def test_probe_stream_on_card_is_the_run_stream(card):
+    from repro_torch.sim import PriorArrivalSource
+    from repro_torch.sim import importance as PI
+
+    class Recording(PriorArrivalSource):
+        def stream(self, gen, cfg):
+            self.seen = super().stream(gen, cfg)
+            return self.seen
+
+    cfg = _trace_cfg()._replace(max_arrivals=8)
+    grid = geometric_grid(6.0, 3 * cfg.horizon_hours, 12, device=card)
+    src = Recording()
+    make_run(cfg, grid, SECOND, arrival_source=src, device=card)(
+        77, make_policy(SECOND, rho=0.05, capacity=cfg.capacity))
+    probe = PI._probe_streams([77], cfg, card, None)
+    leaves = lambda t: [y for x in t for y in (
+        x if isinstance(x, tuple) else (x,))]
+    for x, y in zip(leaves(probe), leaves(src.seen)):
+        assert torch.equal(x[0], y)
+    bm = PI.badness_measure(77, cfg, grid, device=card)
+    assert np.isfinite(bm) and bm > 0

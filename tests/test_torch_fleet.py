@@ -601,7 +601,8 @@ def test_paper_cascade_through_make_run_and_make_fleet_run():
 
 def test_fleet_bench_rows_on_the_cpu(monkeypatch, tmp_path, capsys):
     """The router comparison benchmark end to end at a cut-down preset:
-    one row a router, every router's calibrated numbers in the JSON."""
+    one row a router and the trace-replay row, every router's calibrated
+    numbers in the JSON."""
     import dataclasses
     import json
 
@@ -616,8 +617,12 @@ def test_fleet_bench_rows_on_the_cpu(monkeypatch, tmp_path, capsys):
                       str(out)])
     rows = capsys.readouterr().out.splitlines()
     assert [r.split(",")[0] for r in rows] == [
-        f"scenarios/fleet/{name}" for name in fleet_bench.FLEET_ROUTERS]
-    res = json.loads(out.read_text())["routers"]
+        f"scenarios/fleet/{name}" for name in fleet_bench.FLEET_ROUTERS] + [
+        "scenarios/fleet/replay_least_utilized"]
+    data = json.loads(out.read_text())
+    res = data["routers"]
+    assert data["replay"]["rho"] == res["least_utilized"]["rho"]
+    assert 0.0 <= data["replay"]["utilization"] <= 1.0
     for name, r in res.items():
         assert 0.0 <= r["utilization"] <= 1.0, name
         assert len(r["cluster_utilization"]) == len(fleet_bench.FLEET_FRACS)

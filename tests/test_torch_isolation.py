@@ -49,7 +49,13 @@ def test_scan_sees_the_whole_port():
             port + "obs/export.py", port + "obs/log.py",
             port + "obs/tracing.py", port + "sim/routing.py",
             port + "benchmarks/fleet_bench.py",
-            port + "core/policies.py", port + "tuning/calibrate.py"} <= names
+            port + "core/policies.py", port + "tuning/calibrate.py",
+            port + "traces/__init__.py", port + "traces/schema.py",
+            port + "traces/synth.py", port + "traces/fit.py",
+            port + "traces/ingest.py", port + "traces/replay.py",
+            port + "sim/importance.py", port + "tuning/scenarios.py",
+            port + "tuning/drift.py", port + "benchmarks/scenarios.py",
+            port + "benchmarks/drift_bench.py"} <= names
     for kernel in ("moment_curves", "flash_attention", "decode_gqa"):
         for name in ("kernel.py", "ops.py", "ref.py"):
             assert f"{port}kernels/{kernel}/{name}" in names

@@ -80,25 +80,29 @@ def _starter(cfg, grid: tuple):
     return start, core.init
 
 
-def start_runs(cfg, grid, keys):
+def start_runs(cfg, grid, keys, stream=None):
     """(stream, step_keys, cs) of the runs of ``keys`` as the reference's
     ``make_run`` starts them: each run's pre-drawn arrival stream ([B, T,
-    A] leaves), its T step keys, and the empty core state with a leading
-    [B] (the aggregate [B, N] for ``grid``'s N points)."""
+    A] leaves; ``stream``, when given, replaces it, as ``make_run``'s
+    ``stream=`` or a replay source does), its T step keys, and the empty
+    core state with a leading [B] (the aggregate [B, N] for ``grid``'s N
+    points)."""
     start, init = _starter(cfg, tuple(np.asarray(grid).tolist()))
-    stream, step_keys = start(jnp.asarray(keys))
+    drawn, step_keys = start(jnp.asarray(keys))
+    stream = drawn if stream is None else jax.tree.map(jnp.asarray, stream)
     cs = jax.tree.map(
         lambda x: jnp.broadcast_to(x, (len(keys),) + x.shape), init())
     return stream, step_keys, cs
 
 
-def reference_steps(cfg, grid, kinds, keys, thetas, marginal=False):
+def reference_steps(cfg, grid, kinds, keys, thetas, marginal=False,
+                    stream=None):
     """``reference_draws`` one step at a time: (stream, steps), ``steps`` a
     generator of the T steps' ``StepEvents`` (numpy [B, S] leaves), each
     drawn when it is asked for, so that a long run's events are never all
     held at once."""
     steps, policies = _stepper(cfg, tuple(np.asarray(grid).tolist()))
-    stream, step_keys, cs = start_runs(cfg, grid, keys)
+    stream, step_keys, cs = start_runs(cfg, grid, keys, stream)
     policy = policies(jnp.asarray(kinds, jnp.int32),
                       jnp.asarray(thetas, jnp.float32), marginal)
 
@@ -114,7 +118,7 @@ def reference_steps(cfg, grid, kinds, keys, thetas, marginal=False):
 
 
 def reference_draws(cfg, grid, kinds, keys, thetas, marginal=False,
-                    pad_to=1):
+                    pad_to=1, stream=None):
     """(stream, events) of the reference's runs (keys[b], kinds[b],
     thetas[b]) (threshold and rho both theta, as calibration builds them,
     with Def. 4's marginal heuristic if ``marginal``; ``kinds`` one kind for
@@ -125,15 +129,18 @@ def reference_draws(cfg, grid, kinds, keys, thetas, marginal=False,
     ``pad_to``: the runs are stepped in a batch padded (with copies of the
     last run) to a multiple of ``pad_to``, so that batches of other sizes
     reuse one compiled step; each run's bits do not depend on the batch
-    around it."""
+    around it. ``stream`` (numpy [B, T, A] leaves) replaces the runs'
+    drawn streams, as a replayed trace does."""
     b = len(thetas)
     pad = (-b) % pad_to
     fill = lambda x: np.concatenate([np.asarray(x)] + [np.asarray(x)[-1:]]
                                     * pad)
     if np.ndim(kinds):
         kinds = fill(kinds)
+    if stream is not None:
+        stream = jax.tree.map(fill, stream)
     stream, events = reference_steps(cfg, grid, kinds, fill(keys),
-                                     fill(thetas), marginal)
+                                     fill(thetas), marginal, stream)
     cut = lambda tree: jax.tree.map(lambda x: x[:b], tree)
     return cut(stream), [cut(ev) for ev in events]
 
@@ -142,34 +149,45 @@ class InjectedRuns:
     """A port ``make_run`` run fed the reference's draws: run seeds are
     indices into ``keys``, and each (key, theta) asked for is recorded once
     by ``reference_draws`` (with Def. 4's marginal heuristic when the
-    policy asks for it), in batches padded to a multiple of ``PAD_TO``."""
+    policy asks for it), in batches padded to a multiple of ``PAD_TO``.
+    With ``streams`` (the reference's stacked replay streams, numpy [R, T,
+    A] leaves, one a key) run r replays ``streams[r]``: a call must then
+    pass the port's copy of those streams for its seeds."""
 
     PAD_TO = 36
 
-    def __init__(self, cfg, grid, keys, kind):
+    def __init__(self, cfg, grid, keys, kind, streams=None):
         self.cfg, self.kind = cfg, kind
         self.grid, self.keys = grid, np.asarray(keys)
+        self.streams = streams
         self.run = make_run(port_config(cfg), np.asarray(grid), kind,
                             device="cpu")
         self.draws = {}
 
     def __call__(self, seeds, policy, stream=None):
-        assert stream is None
+        assert (stream is None) == (self.streams is None)
         marginal = bool((policy.marginal_eps > 0).any())
         wanted = [(seed, theta, marginal) for seed, theta in
                   zip(seeds, policy.threshold.numpy().tolist())]
         new = sorted(set(wanted) - set(self.draws))
         if new:
             idx = [i for i, _, _ in new]
+            replay = (None if self.streams is None else
+                      jax.tree.map(lambda x: np.asarray(x)[idx],
+                                   self.streams))
             ref_stream, events = reference_draws(
                 self.cfg, self.grid, self.kind, self.keys[idx],
-                [th for _, th, _ in new], marginal, pad_to=self.PAD_TO)
+                [th for _, th, _ in new], marginal, pad_to=self.PAD_TO,
+                stream=replay)
             for b, run in enumerate(new):
                 self.draws[run] = (
                     type(ref_stream)(*(_row(x, b) for x in ref_stream)),
                     [type(ev)(*(x[b] for x in ev)) for ev in events])
         picked = [self.draws[run] for run in wanted]
-        stream = _stack([s for s, _ in picked])
+        ref = _stack([s for s, _ in picked])
+        if stream is not None:
+            assert np.array_equal(stream.c0.numpy(), ref.c0)
+        stream = ref
         events = [_stack(step) for step in zip(*(e for _, e in picked))]
         return self.run(list(seeds), policy,
                         stream=bridge.from_reference(stream),
