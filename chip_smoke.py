@@ -166,6 +166,19 @@ time:
                its null calibrated on 3 stationary replays of the same
                engine and windows, its snapshots' ``"drift"`` equal to a
                detector fed the scrapes' observable deltas.
+ 14. drivers — ``repro_torch.benchmarks``' ``tuning_bench`` and
+               ``serve_bench`` at their ``smoke`` preset, written through
+               ``run.py``'s writer into one BENCH file (the serve run
+               serving at the tuning run's thetas); ``pick_agg_refresh``
+               reads back the ``tuning/pick_agg_refresh/smoke`` row's K and
+               ``load_operating_point`` each ``tuning/calibrate/<kind>``
+               theta; ``kernels_bench`` with each CUDA row's output held
+               against its plain row's (phases 3 and 7's tolerances);
+               ``run.main --only kernels`` twice into one file (no name
+               twice); each of ``repro_torch.examples``' six modules with
+               ``--smoke`` as ``python -m`` runs it (exit, no NaN or
+               infinity printed, Prop. 4's line). Every path's moment-curve
+               kernels (and the kernels row's flash kernel) must launch.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -174,6 +187,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2908,6 +2922,185 @@ def _unbatch(stream):
     return stream[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the benchmark drivers and the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("admission_serving", "quickstart", "calibrate_policy",
+            "telemetry_dashboard", "trace_scenarios", "drift_recalibration")
+# what the JAX scripts themselves state as true, by example
+EXAMPLE_CLAIMS = {"admission_serving": (
+    "labeling is the dominant strategy (Prop. 4): True",)}
+NOT_FINITE = re.compile(r"\b(nan|inf|infinity)\b", re.IGNORECASE)
+
+
+def check_finite_text(where, text):
+    """Every number printed is finite: no nan or inf token."""
+    bad = NOT_FINITE.search(text)
+    if bad:
+        line = next(ln for ln in text.splitlines() if NOT_FINITE.search(ln))
+        raise AssertionError(f"{where}: {bad.group(0)} in {line!r}")
+
+
+def drivers_path(records):
+    """Phase 14: ``tuning_bench`` and ``serve_bench`` at their smoke
+    preset through ``run.py``'s writer and read back by
+    ``pick_agg_refresh`` and ``load_operating_point``; ``kernels_bench``
+    with every CUDA row against its plain row; ``run.main`` twice into one
+    file; each example with ``--smoke`` as ``python -m`` runs it."""
+    import contextlib
+    import io
+    import os
+    import runpy
+    import tempfile
+
+    import torch
+    from repro_torch.benchmarks import kernels_bench, serve_bench
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks import tuning_bench
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.serve import load_operating_point
+    from repro_torch.tuning import pick_agg_refresh
+
+    launches, seconds = {}, {}
+    kernel_names = ("moment_curves_belief", "moment_curves_agg_belief",
+                    "flash_attention")
+
+    def counted(tag, fn, want):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after; each kernel of ``want`` must have launched."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        got = launches[tag] = {**K.LAUNCHES, **FA.LAUNCHES}
+        if not all(got[name] > 0 for name in want):
+            raise AssertionError(f"{tag}: launches {got}, each of {want} "
+                                 "must launch")
+        return out
+
+    def rows_checked(tag, rows):
+        for row in rows:
+            check_finite_text(tag, row)
+            log("  " + row)
+        return rows
+
+    mc = kernel_names[:2]
+    card = bench_run.device_name(DEVICE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # 1. the two new drivers at the smoke preset, into one BENCH file
+        bench = os.path.join(tmp, "BENCH_smoke.json")
+        rows = rows_checked("tuning_bench", counted(
+            "tuning", lambda: tuning_bench.run("smoke", 0, DEVICE), mc))
+        bench_run.write_artifact(bench, "smoke", 0, seconds["tuning"],
+                                 bench_run.records_of(rows, 0, card))
+        # serve_bench serves at the thetas of the file just written
+        os.environ["REPRO_BENCH_JSON"] = bench
+        try:
+            rows = rows_checked("serve_bench", counted(
+                "serve", lambda: serve_bench.run("smoke", 0, DEVICE), mc))
+        finally:
+            del os.environ["REPRO_BENCH_JSON"]
+        written = bench_run.write_artifact(
+            bench, "smoke", 0, seconds["serve"],
+            bench_run.records_of(rows, 0, card))
+        art = json.loads(Path(bench).read_text())
+        names = [r["name"] for r in written]
+        want_total = round(round(seconds["tuning"], 1) + seconds["serve"], 1)
+        if (len(names) != len(set(names)) or art["device"] != card
+                or art["total_seconds"] != want_total):
+            raise AssertionError(f"the smoke BENCH file: {len(names)} rows, "
+                                 f"{len(set(names))} names, device "
+                                 f"{art['device']!r}, total "
+                                 f"{art['total_seconds']} (want {want_total})")
+        by_name = {r["name"]: r["derived"] for r in written}
+        k_row = int(re.match(r"K=(\d+)",
+                             by_name["tuning/pick_agg_refresh/smoke"])[1])
+        k_read = pick_agg_refresh("smoke", bench_path=bench)
+        thetas = {}
+        for kind in ("zeroth", "first", "second"):
+            want = float(re.match(r"theta=(\S+)",
+                                  by_name[f"tuning/calibrate/{kind}"])[1])
+            op = load_operating_point(kind, "smoke", bench_path=bench)
+            if op is None or op.theta != want:
+                raise AssertionError(f"load_operating_point({kind!r}): {op}, "
+                                     f"the calibrate row's theta {want}")
+            thetas[kind] = want
+        if k_read != k_row:
+            raise AssertionError(f"pick_agg_refresh read K = {k_read}, the "
+                                 f"pick_agg_refresh row says {k_row}")
+        log(f"smoke BENCH file: {len(names)} rows, total_seconds "
+            f"{art['total_seconds']} (tuning + serve), device {card!r}; "
+            f"pick_agg_refresh reads K = {k_read} (the row's); "
+            f"load_operating_point reads the calibrate thetas {thetas}")
+
+        # 2. kernels_bench: each CUDA row's output against its plain row's
+        rows, out = counted("kernels", lambda: kernels_bench.measure(
+            0, DEVICE), kernel_names)
+        rows_checked("kernels_bench", rows)
+        tols = {"curves": (TOL_EL, TOL_VL), "aggregate": (TOL_EL, TOL_VL),
+                "attention": (FLASH_TOL["bfloat16"],)}
+        for name in kernels_bench.KERNEL_OUTPUTS:
+            got, want = out[name + "_cuda"], out[name]
+            pairs = (zip(got, want) if name != "attention"
+                     else [(got, want)])
+            for (g, w), tol in zip(pairs, tols[name]):
+                torch.testing.assert_close(g, w, **tol)
+        log("kernels_bench: each CUDA row's output equals its plain row's "
+            "at phases 3 and 7's tolerances (E[L] rtol 2e-4, V[L] 2e-3; bf16 "
+            "flash one bf16 ulp)")
+
+        # 3. run.main twice into one file: the second replaces every row
+        path = os.path.join(tmp, "BENCH_tiny.json")
+        heads = []
+        for _ in range(2):
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                bench_run.main(["--scale", "tiny", "--only", "kernels",
+                                "--json", path, "--device", DEVICE])
+            check_finite_text("run.main", buf.getvalue())
+            heads.append(json.loads(Path(path).read_text()))
+        names = [r["name"] for r in heads[1]["rows"]]
+        if (len(names) != len(set(names))
+                or names != [r["name"] for r in heads[0]["rows"]]
+                or heads[1]["device"] != card or heads[1]["seed"] != 0):
+            raise AssertionError(f"run.main twice: {names}, {heads[1]}")
+        log(f"run.main --only kernels twice: {len(names)} rows, no name "
+            f"twice; total_seconds {heads[0]['total_seconds']} then "
+            f"{heads[1]['total_seconds']} (every row replaced: the second "
+            "call's own)")
+
+    # 4. the examples, each as ``python -m`` runs it
+    argv = sys.argv
+    for name in EXAMPLES:
+        sys.argv = [name, "--smoke", "--device", DEVICE]
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                counted(name, lambda: runpy.run_module(
+                    f"repro_torch.examples.{name}", run_name="__main__",
+                    alter_sys=True), mc)
+        finally:
+            sys.argv = argv
+        text = buf.getvalue()
+        log(f"-- python -m repro_torch.examples.{name} --smoke "
+            f"({seconds[name]:.1f} s)")
+        for line in text.splitlines():
+            log("  " + line)
+        check_finite_text(name, text)
+        for claim in EXAMPLE_CLAIMS.get(name, ()):
+            if claim not in text:
+                raise AssertionError(f"{name}: no line {claim!r}")
+
+    for name in kernel_names:
+        records[name]["launches_drivers"] = {
+            tag: n[name] for tag, n in launches.items() if n[name]}
+    log("phase 14 seconds: " + json.dumps(
+        {k: round(v, 2) for k, v in seconds.items()}))
+
+
 def main():
     import torch
 
@@ -2986,6 +3179,9 @@ def main():
 
     with phase("13. the trace-driven path"):
         trace_path(records)
+
+    with phase("14. the benchmark drivers and the examples"):
+        drivers_path(records)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

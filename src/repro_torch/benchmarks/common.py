@@ -57,6 +57,17 @@ SCALES = {
 }
 
 
+#: the seconds-scale preset of ``tuning_bench`` and ``serve_bench`` (the
+#: JAX package's ``REPRO_SMOKE=1`` preset): it exercises their row machinery
+SMOKE_SCALE = Scale("smoke", 800.0, 0.05, 60 * 24.0, 24.0, 128, 2, 3,
+                    16, 5e-3, agg_refresh=1)
+
+
+def scale_for(scale_name: str) -> Scale:
+    """The preset ``scale_name``: one of ``SCALES``, or ``"smoke"``."""
+    return SMOKE_SCALE if scale_name == "smoke" else SCALES[scale_name]
+
+
 def sim_config(scale: Scale, **over) -> SimConfig:
     """Preset -> SimConfig. ``agg_refresh_steps`` comes from the K-curve
     recorded for this scale (``tuning.pick_agg_refresh`` over the committed

@@ -120,6 +120,12 @@ def summary(res, seconds: float) -> dict:
                                           res.oracle)}}
 
 
+def run(scale_name: str = "tiny", seed: int = 0, device="cuda") -> list:
+    """The detector and regret rows, as the JAX package's ``run`` returns
+    them."""
+    return rows(*protocol(scale_name, seed, device), scale_name)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", choices=sorted(DRIFT_SCALES), default="tiny")

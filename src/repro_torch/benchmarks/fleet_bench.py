@@ -130,6 +130,14 @@ def rows(res: dict, rep: dict) -> list:
             f" rho={rep['rho']:.4g} dropped={rep['dropped']}")]
 
 
+def run(scale_name: str = "tiny", seed: int = 0, device="cuda") -> list:
+    """The routers' rows and the replay row, as the JAX package's ``run``
+    returns them."""
+    res = results(scale_name, seed, device)
+    return rows(res, replay(scale_name, res["least_utilized"]["rho"], seed,
+                            device))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="tiny")

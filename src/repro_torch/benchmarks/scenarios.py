@@ -198,6 +198,12 @@ def rows(res: dict) -> list:
     return out
 
 
+def run(scale_name: str = "tiny", seed: int = 0,
+        device="cuda") -> list:
+    """The sweep's CSV rows, as the JAX package's ``run`` returns them."""
+    return rows(results(scale_name, seed, device))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="tiny")

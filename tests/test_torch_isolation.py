@@ -55,7 +55,15 @@ def test_scan_sees_the_whole_port():
             port + "traces/ingest.py", port + "traces/replay.py",
             port + "sim/importance.py", port + "tuning/scenarios.py",
             port + "tuning/drift.py", port + "benchmarks/scenarios.py",
-            port + "benchmarks/drift_bench.py"} <= names
+            port + "benchmarks/drift_bench.py", port + "benchmarks/run.py",
+            port + "benchmarks/serve_bench.py",
+            port + "benchmarks/tuning_bench.py",
+            port + "benchmarks/kernels_bench.py",
+            port + "examples/__init__.py"} <= names
+    for name in ("admission_serving", "quickstart", "calibrate_policy",
+                 "telemetry_dashboard", "trace_scenarios",
+                 "drift_recalibration"):
+        assert f"{port}examples/{name}.py" in names
     for kernel in ("moment_curves", "flash_attention", "decode_gqa"):
         for name in ("kernel.py", "ops.py", "ref.py"):
             assert f"{port}kernels/{kernel}/{name}" in names
