@@ -179,6 +179,35 @@ time:
                ``--smoke`` as ``python -m`` runs it (exit, no NaN or
                infinity printed, Prop. 4's line). Every path's moment-curve
                kernels (and the kernels row's flash kernel) must launch.
+ 15. families — the nine other architectures at their published widths
+               (every d_model, head count, KV-head count, head_dim, d_ff,
+               vocab, expert count, top-k, SSM state and window of the
+               config), bf16 weights from a generator on the card; depth
+               cut only where the weights do not fit (60 GB of bf16
+               weights at once: dbrx-132b runs 8 of its 40 layers,
+               chameleon-34b 41 of 48; each cut printed with its reason),
+               the other seven whole. First the two attention
+               kernels at the shapes the families bring (flash at (G, Dh)
+               = (5, 64) with window 2,048, (5, 128), (6, 128), (12, 128)
+               and (48, 128); decode at G = 5, 6, 12, 48 and on hymba's
+               rolling buffer past its window) against their plain
+               versions with phase 7's tolerances, each timed beside SDPA.
+               Then each architecture: ``forward`` (B = 2, S = 2,048;
+               hymba 2,688; whisper 1,500 frames and 448 tokens) with the
+               flash lane on and off (the rms gap of the logits, the share
+               of equal argmax; each layer's attention held to phase 8's
+               limit); ``prefill`` (hymba 2,560 tokens, past its window)
+               and 8 teacher-forced ``decode_step``s with the decode kernel
+               on and off against the forward's logits at the same
+               positions (for MoE the two decode lanes against each
+               other, at the per-layer limit); for MoE two forwards
+               bit-equal and layer 0's dropped fraction at T = 4,096 and
+               at a B = 4 decode step (capacity 1); two requests served
+               through ``launch.serve``'s engine. Last, ``launch.serve
+               --arch hymba-1.5b`` at full depth, 8 requests of 32 new tokens
+               (tokens/s), and ``python -m repro_torch.examples.serve_lm
+               --smoke``. Both attention kernels must launch on the model
+               paths (counted from 0 around each).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1087,14 +1116,29 @@ def dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
 
-def sdpa(q, k, v, causal):
+def sdpa(q, k, v, causal, mask=None):
     """One PyTorch call for the same attention ([B, S, H, Dh] inputs), the
-    yardstick ``library_ms``; the port never calls it."""
+    yardstick ``library_ms``; the port never calls it. ``mask``: an [Sq,
+    Sk] bool of visible keys, in place of ``causal`` (a sliding window)."""
     import torch.nn.functional as F
 
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                          enable_gqa=True)
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+
+
+def sdpa_window(q, k, v, window):
+    """``sdpa`` of causal attention in a window of ``window`` keys, as one
+    call: plain causal where the window covers every key, else a banded
+    mask (built here, before the call that is timed)."""
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    s = q.shape[1]
+    if not window or window >= s:
+        return lambda: sdpa(q, k, v, True)
+    band = FR.attention_mask(s, s, True, window, q.device)
+    return lambda: sdpa(q, k, v, False, band)
 
 
 def attention_bound(nbytes, flops):
@@ -3101,6 +3145,450 @@ def drivers_path(records):
         {k: round(v, 2) for k, v in seconds.items()}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the other LM families at their published widths
+# ---------------------------------------------------------------------------
+
+# the nine other architectures, in the order phase 15 runs them
+FAMILIES = ("hymba-1.5b", "xlstm-125m", "whisper-small",
+            "moonshot-v1-16b-a3b", "dbrx-132b", "chameleon-34b",
+            "granite-20b", "qwen3-14b", "starcoder2-3b")
+# bf16 weights phase 15 holds on the card at once: an architecture whose
+# layers do not fit runs as many as do (dbrx-132b's 263 GB and
+# chameleon-34b's 68.6 GB do not), leaving the rest of the card's 80 GB to
+# the einsum lane's float32 logits and the forward's activations
+FAMILY_WEIGHT_BYTES = 60e9
+FAMILY_B, FAMILY_S = 2, 2048           # each forward
+WHISPER_TOKENS = 448                   # whisper's decoder length
+DECODE_STEPS = 8                       # teacher-forced steps after prefill
+SSD_CHUNK = 128                        # hybrid and ssm lengths: multiples
+HYMBA_PREFILL = 2560                   # past its window of 2,048
+# the new (H, KVH, Dh, window) shapes the families give the two attention
+# kernels, by the architecture that brings them: G = 5, 6, 12 and 48
+FAMILY_ATTN_SHAPES = (("hymba-1.5b", 25, 5, 64, 2048),
+                      ("qwen3-14b", 40, 8, 128, 0),
+                      ("dbrx-132b", 48, 8, 128, 0),
+                      ("starcoder2-3b", 24, 2, 128, 0),
+                      ("granite-20b", 48, 1, 128, 0))
+
+
+def family_kernel_shapes(records):
+    """Phase 15, first: flash (B = 2, S = 2,048, bf16) and decode (B = 4,
+    4,096 slots, lengths 2,048 / 1 / 4,096 / 0, bf16) at each new shape
+    against their plain versions with phase 7's tolerances, bitwise
+    repeats; decode also on hymba's rolling buffer once the position has
+    passed the window (all 2,048 slots valid); each timed beside SDPA."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.decode_gqa import ref as DR
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    bf16, tol = torch.bfloat16, FLASH_TOL["bfloat16"]
+    b, s = FAMILY_B, FAMILY_S
+    flash, decode, worst = {}, {}, {}
+    for arch, h, kvh, dh, window in FAMILY_ATTN_SHAPES:
+        tag = f"G={h // kvh} Dh={dh}" + (f" window={window}" if window
+                                           else "")
+        q = randn((b, s, h, dh), gen, bf16)
+        k = randn((b, s, kvh, dh), gen, bf16)
+        v = randn((b, s, kvh, dh), gen, bf16)
+        kern = lambda: FA.flash_attention_bshd(q, k, v, causal=True,
+                                               window=window)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash not deterministic at {tag}")
+        want32 = FR.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal=True, window=window)
+        torch.testing.assert_close(got.float(), want32.to(bf16).float(),
+                                   **tol, msg=lambda m: f"flash {tag}: {m}")
+        worst["flash"] = max(worst.get("flash", 0.0), tolerance_used(
+            got.float(), want32.to(bf16).float(), tol))
+        keys = (s * (s + 1) // 2 if not window else
+                sum(min(i + 1, window) for i in range(s)))
+        b_ms, b_by = attention_bound(2 * (2 * q.numel() + k.numel()
+                                          + v.numel()), 4 * b * h * dh * keys)
+        flash[tag] = dict(arch=arch, H=h, KVH=kvh, ms=event_ms(kern),
+                          plain_ms=event_ms(lambda: FR.flash_attention_ref(
+                              q, k, v, causal=True, window=window),
+                              reps=5, warm=1),
+                          bound_ms=b_ms, bound_by=b_by,
+                          library_ms=event_ms(sdpa_window(q, k, v, window)))
+        del q, k, v, got, again, want32
+
+        slots = window or 4096
+        q = randn((4, h, dh), gen, bf16)
+        k = randn((4, slots, kvh, dh), gen, bf16)
+        v = randn((4, slots, kvh, dh), gen, bf16)
+        lengths = [slots] * 4 if window else [2048, 1, slots, 0]
+        decode_case(q, k, v, lengths, worst)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+        valid = sum(lengths)
+        b_ms, b_by = attention_bound(
+            2 * 2 * valid * kvh * dh + 2 * q.numel() + 4 * q.numel(),
+            4 * h * valid * dh)
+        full = torch.full((4,), 2048 if not window else slots,
+                          dtype=torch.int32, device=DEVICE)
+        kv = (k[:, :int(full[0])], v[:, :int(full[0])])
+        decode[tag + (" rolling buffer" if window else "")] = dict(
+            arch=arch, H=h, KVH=kvh, lengths=lengths,
+            ms=event_ms(lambda: DG.decode_gqa_bshd(q, k, v, lens)),
+            plain_ms=event_ms(lambda: DR.decode_gqa_ref(q, k, v, lens)),
+            bound_ms=b_ms, bound_by=b_by,
+            ms_equal_lengths=event_ms(
+                lambda: DG.decode_gqa_bshd(q, k, v, full)),
+            library_ms_equal_lengths=event_ms(
+                lambda: sdpa(q[:, None], *kv, False)))
+        del q, k, v, kv
+    for name, rows in (("flash_attention", flash), ("decode_gqa", decode)):
+        records[name]["families"] = rows
+        for tag, r in rows.items():
+            lib = (f"SDPA {r['library_ms']:.4f} ms" if "library_ms" in r
+                   else f"equal lengths {r['ms_equal_lengths']:.4f} ms, SDPA "
+                   f"{r['library_ms_equal_lengths']:.4f} ms")
+            log(f"{name} at {tag} ({r['arch']}, H {r['H']} / KVH "
+                f"{r['KVH']}): {r['ms']:.4f} ms a call, plain "
+                f"{r['plain_ms']:.4f} ms, {lib}, bound {r['bound_ms']:.6f} "
+                f"ms ({r['bound_by']})")
+    log("the new shapes match their plain versions (flash within one bf16 "
+        "ulp, decode 3e-5); largest share of the tolerance used: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def family_depth(cfg, dtype):
+    """(layers to run, why): every layer, or as many as FAMILY_WEIGHT_BYTES
+    of weights hold."""
+    from repro_torch.models import build_model
+
+    itemsize = 2 if dtype_name(dtype) == "bfloat16" else 4
+    outer = build_model(dataclasses.replace(cfg, n_layers=0)).n_params()
+    per_layer = (build_model(cfg).n_params() - outer) / cfg.n_layers
+    total = itemsize * (outer + cfg.n_layers * per_layer)
+    if total <= FAMILY_WEIGHT_BYTES:
+        return cfg.n_layers, "full depth"
+    depth = int((FAMILY_WEIGHT_BYTES / itemsize - outer) // per_layer)
+    return depth, (f"depth cut: its {cfg.n_layers} layers' weights, "
+                   f"{total / 1e9:.1f} GB in {dtype_name(dtype)}, exceed "
+                   f"the {FAMILY_WEIGHT_BYTES / 1e9:.0f} GB phase 15 holds "
+                   "on the 80 GB card")
+
+
+def family_model(name, dtype):
+    """(cfg, model, params) of ``name`` at its published widths, as deep
+    as ``family_depth`` allows, weights from a generator on the card."""
+    import torch
+    from repro_torch.models import build_model, get_config
+
+    cfg = get_config(name)
+    full = cfg.n_layers
+    depth, why = family_depth(cfg, dtype)
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    params = model.init(gen, dtype=dtype, device=DEVICE)
+    enc = f" + {cfg.enc_layers} encoder" if cfg.enc_layers else ""
+    log(f"-- {name} [{cfg.family}]: d_model {cfg.d_model}, H {cfg.n_heads} "
+        f"/ KVH {cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", {cfg.n_experts} experts top {cfg.moe_top_k}"
+           if cfg.n_experts else "")
+        + (f", SSM state {cfg.ssm_state}" if cfg.ssm_state else "")
+        + (f", window {cfg.window}" if cfg.window else "")
+        + f"; {depth}{enc} of {full} layers ({why}), "
+        f"{model.n_params():,} parameters in {dtype_name(dtype)}")
+    return cfg, model, params
+
+
+def family_layer_rms(model, params, tokens):
+    """The flash lane's forward with each layer's attention also run
+    through the einsum lane on the same input: the largest rms difference
+    of the two, relative to the output's rms (None: no attention)."""
+    import torch
+    from repro_torch.models.layers import attention, rmsnorm
+
+    acfg = model.cfg.attn_config()
+    x = model._embed(params, tokens)
+    worst = None
+    for ltype, p in zip(model.layer_types, params["layers"]):
+        if ltype in ("attn", "hybrid"):
+            h = rmsnorm(p["ln1"], x)
+            got = attention(p["attn"], acfg, h, use_kernel=True)
+            want = attention(p["attn"], acfg, h, use_kernel=False)
+            worst = max(worst or 0.0, compare_logits(got, want)[1])
+            del got, want
+        x, _ = model._block_apply(ltype, p, x)
+        torch.cuda.synchronize()
+    return worst
+
+
+def clone_cache(tree):
+    """A copy of a cache (decode steps write attention caches in place)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_cache(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_cache(x) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_cache(x) for x in tree)
+    return tree
+
+
+def pad_kv_caches(cache, n):
+    """A prefilled cache with n empty slots after the prompt's, so that
+    decode steps continue the prompt (a cache sized to the prompt clamps
+    the first step's write onto its last slot, as the JAX package does):
+    every unwindowed KVCache of a layer list, or whisper's self-attention
+    caches."""
+    import torch
+    from repro_torch.models.layers import KVCache
+
+    def pad(kv):
+        z = torch.zeros((kv.k.shape[0], n, *kv.k.shape[2:]),
+                        dtype=kv.k.dtype, device=kv.k.device)
+        return kv._replace(k=torch.cat([kv.k, z], 1),
+                           v=torch.cat([kv.v, z], 1))
+
+    if hasattr(cache, "self_kv"):
+        return cache._replace(self_kv=[pad(kv) for kv in cache.self_kv])
+    return [pad(c) if isinstance(c, KVCache) else c for c in cache]
+
+
+def counted(launched, fn):
+    """``fn()`` with the attention kernels' counts set to 0 just before and
+    read just after, added to ``launched``."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    torch.cuda.synchronize()
+    FA.reset_launches()
+    DG.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launched["flash_attention"] += FA.LAUNCHES["flash_attention"]
+    launched["decode_gqa"] += DG.LAUNCHES["decode_gqa"]
+    return out
+
+
+def moe_drops(model, params, tokens):
+    """Layer 0's MoE on the forward's tokens (T = B S) and on a B = 4
+    decode step's tokens: (dropped fraction, capacity) of each."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import attention, rmsnorm
+
+    cfg, p = model.cfg, params["layers"][0]
+    x = model._embed(params, tokens)
+    x = x + attention(p["attn"], cfg.attn_config(), rmsnorm(p["ln1"], x))
+    h2 = rmsnorm(p["ln2"], x)
+    out = {}
+    for tag, h in (("prefill", h2), ("decode", h2[:, :2].reshape(
+            4, 1, cfg.d_model))):
+        m = moe_lib.moe(p["ffn"], cfg.moe_config(), h)
+        t = h.shape[0] * h.shape[1]
+        out[tag] = (float(m.dropped_frac),
+                    moe_lib.capacity(t, cfg.moe_config()), t)
+    return out
+
+
+def family_path(name, launched, out):
+    """One architecture: forward with the flash lane on and off; the
+    per-layer attention gate; prefill and teacher-forced decode steps with
+    the decode kernel on and off against the forward's logits; MoE
+    determinism and drops; two requests served."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg, model, params = family_model(name, torch.bfloat16)
+    rng = np.random.default_rng(15)
+    audio = cfg.family == "audio"
+    s = WHISPER_TOKENS if audio else FAMILY_S
+    if cfg.window:
+        s = HYMBA_PREFILL + SSD_CHUNK   # the decode steps' positions too
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (FAMILY_B, s))
+                              ).to(DEVICE)
+    extra = {}
+    if audio:
+        extra["frames"] = randn((FAMILY_B, cfg.enc_seq, cfg.d_model),
+                                torch.Generator(device=DEVICE).manual_seed(16),
+                                torch.bfloat16)
+    lanes = {lane: build_model(dataclasses.replace(cfg, use_flash_kernel=lane))
+             for lane in (True, False)}
+    flash = counted(launched, lambda: lanes[True].forward(params, tokens,
+                                                          **extra))
+    if flash.shape != (FAMILY_B, s, cfg.vocab) or flash.dtype != cfg.dtype:
+        raise AssertionError(f"{name}: logits {flash.shape} {flash.dtype}")
+    if not bool(torch.isfinite(flash).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    plain = lanes[False].forward(params, tokens, **extra)
+    diff, rms, same = compare_logits(flash, plain)
+    del plain
+    r = dict(depth=cfg.n_layers, logits_rms=rms, logits_argmax=same)
+    layer = None if audio else family_layer_rms(lanes[True], params, tokens)
+    r["layer_rms"] = layer
+    log(f"  forward B={FAMILY_B} S={s}"
+        + (f" ({cfg.enc_seq} frames)" if audio else "")
+        + f", flash lane against the einsum lane: logits max |diff| "
+        f"{diff:.3e}, rms diff / rms {rms:.3e}, equal argmax {same:.4f}; "
+        + ("whisper's attention never takes the flash kernel" if audio
+           else "no attention layer" if layer is None
+           else f"per layer, attention rms diff / rms at most {layer:.3e}"))
+    if layer is not None and layer > BF16_TOL:
+        raise AssertionError(f"{name}: a layer's attention lanes differ by "
+                             f"{layer:.3e}")
+    if cfg.family == "moe":
+        again = lanes[True].forward(params, tokens)
+        if not torch.equal(again, flash):
+            raise AssertionError(f"{name}: two forwards differ")
+        del again
+        drops = moe_drops(model, params, tokens)
+        r["dropped"] = drops
+        log("  two forwards are bit-equal; layer 0's MoE drops "
+            + ", ".join(f"{tag} (T = {t}, capacity {cap}) {frac:.4f}"
+                        for tag, (frac, cap, t) in drops.items()))
+
+    # prefill, then teacher-forced decode steps against the forward
+    p_len = (HYMBA_PREFILL if cfg.window else
+             s - DECODE_STEPS if audio else s - SSD_CHUNK)
+    logits_p, cache = model.prefill(params, tokens[:, :p_len], **extra)
+    if not cfg.window:
+        cache = pad_kv_caches(cache, DECODE_STEPS)
+    want = flash[:, p_len:p_len + DECODE_STEPS].float()
+    pre = compare_logits(logits_p, flash[:, p_len - 1])
+    steps = {}
+    for lane in (True, False):
+        c = clone_cache(cache)
+
+        def decode(c=c, lane=lane):
+            out = []
+            for t in range(DECODE_STEPS):
+                lg, c = model.decode_step(params, tokens[:, p_len + t], c,
+                                          use_kernel=lane)
+                out.append(lg)
+            return torch.stack(out, 1)
+
+        steps[lane] = counted(launched, decode) if lane else decode()
+        if not bool(torch.isfinite(steps[lane]).all()):
+            raise AssertionError(f"{name}: non-finite decode logits")
+    del cache, c, decode
+    kern_vs_fwd = compare_logits(steps[True], want)
+    plain_vs_fwd = compare_logits(steps[False], want)
+    lanes_gap = compare_logits(steps[True], steps[False])
+    r.update(prefill_rms=pre[1], decode_kernel_rms=kern_vs_fwd[1],
+             decode_einsum_rms=plain_vs_fwd[1], decode_lanes_rms=lanes_gap[1],
+             decode_kernel_argmax=kern_vs_fwd[2])
+    log(f"  prefill {p_len} tokens, then {DECODE_STEPS} teacher-forced "
+        f"decode steps: prefill logits against the forward's rms "
+        f"{pre[1]:.3e}; decode against the forward's logits at the same "
+        f"positions, kernel lane rms {kern_vs_fwd[1]:.3e} (equal argmax "
+        f"{kern_vs_fwd[2]:.4f}), einsum lane rms {plain_vs_fwd[1]:.3e} "
+        f"({plain_vs_fwd[2]:.4f}); kernel lane against einsum lane rms "
+        f"{lanes_gap[1]:.3e}")
+    # held as phase 8 holds the logits (5x its bf16 limit over 12-52
+    # layers). For MoE only the two decode lanes, on the same cache and
+    # tokens, and at the per-layer limit: its capacity follows T, so a
+    # prefill (T = B x prompt) and a decode step (T = B, capacity 1) drop
+    # assignments that the forward keeps, as the reference does
+    if cfg.family == "moe":
+        worst, limit = lanes_gap[1], BF16_TOL
+    else:
+        worst = max(pre[1], kern_vs_fwd[1], plain_vs_fwd[1], lanes_gap[1])
+        limit = 5 * BF16_TOL
+    if worst > limit:
+        raise AssertionError(f"{name}: prefill or decode lanes differ by "
+                             f"{worst:.3e} (limit {limit:.0e})")
+    del flash, steps, want
+
+    # two requests through the launcher's engine at this depth
+    if name != "hymba-1.5b":
+        args = S.parse_args(["--arch", name, "--requests", "2"])
+        reqs, done, secs = S.serve(model, params, args, cfg.vocab)
+        n_tok = sum(len(q.out_tokens) for q in reqs)
+        if len(done) != len(reqs) or not all(q.done for q in reqs):
+            raise AssertionError(f"{name}: {len(done)}/{len(reqs)} served")
+        r["served_tokens_per_s"] = n_tok / secs
+        log(f"  served {len(done)}/{len(reqs)} requests, {n_tok} tokens in "
+            f"{secs:.2f} s ({n_tok / secs:.1f} tokens/s)")
+    del model, params, lanes
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t0
+    out[name] = r
+
+
+def serve_lm_example():
+    """``python -m repro_torch.examples.serve_lm --smoke`` on the card, as
+    phase 14 runs the other examples: it exits, prints no NaN or infinity,
+    and answers its 4 requests."""
+    import contextlib
+    import io
+    import runpy
+
+    argv = sys.argv
+    sys.argv = ["serve_lm", "--smoke", "--device", DEVICE]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            runpy.run_module("repro_torch.examples.serve_lm",
+                             run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = argv
+    text = buf.getvalue()
+    log(f"-- python -m repro_torch.examples.serve_lm --smoke "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for line in text.splitlines():
+        log("  " + line)
+    check_finite_text("serve_lm", text)
+    if not text.startswith("served 4 requests"):
+        raise AssertionError("serve_lm: no 'served 4 requests' line")
+
+
+def families_path(records):
+    """Phase 15: the kernels at the families' new shapes; each of the nine
+    other architectures at its published widths; hymba-1.5b at full depth
+    served through ``launch.serve``. Both attention kernels must launch on
+    the model paths (counted from 0 around each)."""
+    import torch
+    from repro_torch.launch import serve as S
+
+    family_kernel_shapes(records)
+    launched = {"flash_attention": 0, "decode_gqa": 0}
+    out = {}
+    for name in FAMILIES:
+        family_path(name, launched, out)
+
+    args = S.parse_args(["--arch", "hymba-1.5b", "--requests", "8",
+                         "--max-new", "32"])
+    cfg, model, params = S.build(args)
+    reqs, done, secs = S.serve(model, params, args, cfg.vocab)
+    n_tok = sum(len(q.out_tokens) for q in reqs)
+    if len(done) != len(reqs) or not all(
+            q.done and 1 <= len(q.out_tokens) <= args.max_new for q in reqs):
+        raise AssertionError(f"hymba-1.5b: {len(done)}/{len(reqs)} served")
+    out["hymba-1.5b"]["served_tokens_per_s"] = n_tok / secs
+    log(f"-- launch.serve --arch hymba-1.5b (32 layers, float32 weights, "
+        f"bf16 activations): {len(done)}/{len(reqs)} requests, {n_tok} "
+        f"tokens in {secs:.2f} s ({n_tok / secs:.1f} tokens/s)")
+    del model, params
+    torch.cuda.empty_cache()
+    serve_lm_example()
+
+    for kernel, n in launched.items():
+        if n == 0:
+            raise AssertionError(f"{kernel} never launched in phase 15")
+        records[kernel]["launches_families"] = n
+    log(f"phase 15 launches (model paths, counted from 0 around each): "
+        f"flash {launched['flash_attention']}, decode "
+        f"{launched['decode_gqa']}")
+    log("phase 15 numbers: " + json.dumps(out, default=float))
+
+
 def main():
     import torch
 
@@ -3182,6 +3670,9 @@ def main():
 
     with phase("14. the benchmark drivers and the examples"):
         drivers_path(records)
+
+    with phase("15. the other LM families at their published widths"):
+        families_path(records)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

@@ -7,17 +7,19 @@ policies and [C]-leading core states and ``FleetMetrics`` too, and a
 package's NamedTuples whose leaves are numpy arrays (e.g.
 ``jax.tree.map(np.asarray, x)``) and returns the port's NamedTuple of the same name, with tensors on
 ``device``. The two are matched by class name and ``_fields``; the LM's
-``KVCache`` crosses the same way. ``to_numpy(tree)`` turns a port
-NamedTuple's tensors back into numpy arrays. The LM scaffold has weights:
-``load_lm_params(module, params_np)`` fills the port's parameter modules
-from the JAX ``DecoderLM.init`` tree as numpy arrays, so that both packages
-compute the same function. bfloat16 arrays (numpy's ``ml_dtypes``
-bfloat16) cross exactly. Nothing here imports JAX.
+caches (``KVCache``, ``SSMCache``, ``MLSTMCache``, ``SLSTMState``) cross
+the same way. ``to_numpy(tree)`` turns a port NamedTuple's tensors back
+into numpy arrays. The LM scaffold has weights: ``load_lm_params(module,
+params_np)`` fills the port's parameter modules from the JAX
+``DecoderLM.init`` or ``EncDecLM.init`` tree as numpy arrays, so that both
+packages compute the same function. bfloat16 arrays (numpy's
+``ml_dtypes`` bfloat16) cross exactly. Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from .core.belief import GammaBelief
 from .core.moments import MomentCurves
@@ -25,6 +27,8 @@ from .core.policies import PolicyParams
 from .core.processes import (DeploymentParams, PopulationPriors,
                              PseudoObservations, StepEvents)
 from .models.layers import KVCache
+from .models.ssm import SSMCache
+from .models.xlstm import MLSTMCache, SLSTMState
 from .obs.counters import TelemetryState
 from .sim.core import (ArrivalStream, CoreState, FleetConfig, SimConfig,
                        SimState)
@@ -36,7 +40,8 @@ PORTED = {cls.__name__: cls for cls in (
     GammaBelief, DeploymentParams, ArrivalStream, SimState, CoreState,
     StepEvents, PolicyParams, PopulationPriors, MomentCurves, KVCache,
     PseudoObservations, SimConfig, FleetConfig, RunMetrics, FleetMetrics,
-    RouteContext, TelemetryState, WorkloadTrace, ScaleoutEvents)}
+    RouteContext, TelemetryState, WorkloadTrace, ScaleoutEvents, SSMCache,
+    MLSTMCache, SLSTMState)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -82,22 +87,32 @@ def to_numpy(tree):
 
 
 def load_lm_params(module, params_np) -> None:
-    """Fill the port's LM parameters (``DecoderLM.init``'s ``Params`` tree)
-    in place from the JAX ``DecoderLM.init`` tree with numpy leaves. The JAX
-    tree stacks the layers on a leading axis (``layers`` is a dict of
-    [L, ...] arrays) where the port has one module per layer. Shapes must
-    match exactly."""
+    """Fill the port's LM parameters (``DecoderLM.init``'s or
+    ``EncDecLM.init``'s ``Params`` tree) in place from the JAX package's
+    ``init`` tree with numpy leaves. The JAX tree has three stack shapes
+    where the port has one module a layer: a homogeneous stack's
+    ``layers`` is a dict of [L, ...] arrays (MoE and SSM leaves included),
+    a heterogeneous one's (xLSTM) a list of dicts, and ``EncDecLM``'s
+    ``encoder`` and ``decoder`` are lists. Names and shapes must match
+    exactly."""
 
     def fill(mod, tree, where):
+        if isinstance(tree, (list, tuple)):
+            if not isinstance(mod, nn.ModuleList) or len(mod) != len(tree):
+                raise ValueError(f"{where}: reference has a list of "
+                                 f"{len(tree)}, port has {_describe(mod)}")
+            for i, (m, t) in enumerate(zip(mod, tree)):
+                fill(m, t, f"{where}[{i}]")
+            return
         names = set(tree) if isinstance(tree, dict) else None
-        if names != set(mod.keys()):
+        if isinstance(mod, nn.ModuleList) or names != set(mod.keys()):
             raise ValueError(f"{where}: reference has {sorted(names or ())}, "
-                             f"port has {sorted(mod.keys())}")
+                             f"port has {_describe(mod)}")
         for name, value in tree.items():
             target = mod[name]
-            if name == "layers":
-                fill_layers(target, value, f"{where}.layers")
-            elif isinstance(value, dict):
+            if isinstance(target, nn.ModuleList) and isinstance(value, dict):
+                fill_stacked(target, value, f"{where}.{name}")
+            elif isinstance(value, (dict, list, tuple)):
                 fill(target, value, f"{where}.{name}")
             else:
                 src = _tensor(value)
@@ -108,7 +123,7 @@ def load_lm_params(module, params_np) -> None:
                 with torch.no_grad():
                     target.copy_(src)
 
-    def fill_layers(layers, tree, where):
+    def fill_stacked(layers, tree, where):
         depth = {np.shape(x)[0] for x in _tree_leaves(tree)}
         if depth != {len(layers)}:
             raise ValueError(f"{where}: reference stacks {sorted(depth)} "
@@ -117,6 +132,12 @@ def load_lm_params(module, params_np) -> None:
             fill(mod, _index_tree(tree, i), f"{where}[{i}]")
 
     fill(module, params_np, "params")
+
+
+def _describe(mod) -> str:
+    if isinstance(mod, nn.ModuleList):
+        return f"a list of {len(mod)}"
+    return str(sorted(mod.keys()))
 
 
 def _tree_leaves(tree):

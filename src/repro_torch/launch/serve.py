@@ -4,6 +4,9 @@ Usage (on a card; ``--device cpu`` runs the plain lanes on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --requests 12 --max-new 16
 
+``--arch`` takes any of the registry's ten architectures
+(``models.ARCH_NAMES``); ``--reduced`` serves its tiny same-family config.
+
 The weights are drawn from ``--seed`` by the port's own ``init`` (no
 checkpoint is read), as the JAX package's launcher does.
 """
@@ -16,13 +19,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import build_model, get_config, reduced_config
+from ..models import ARCH_NAMES, build_model, get_config, reduced_config
 from ..serve.engine import Request, ServeEngine
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCH_NAMES)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=16)

@@ -1,7 +1,8 @@
-"""LM scaffold: the decoder LM (dense and vlm families) behind a registry of
-the ported architectures."""
+"""LM scaffold: the decoder LM (every decoder family) and the
+encoder-decoder (audio), behind a registry of the ten architectures."""
+from .encdec import EncDecLM
 from .lm import DecoderLM, ModelConfig
 from .registry import ARCH_NAMES, build_model, get_config, reduced_config
 
-__all__ = ["DecoderLM", "ModelConfig", "ARCH_NAMES", "build_model",
-           "get_config", "reduced_config"]
+__all__ = ["DecoderLM", "EncDecLM", "ModelConfig", "ARCH_NAMES",
+           "build_model", "get_config", "reduced_config"]

@@ -1,5 +1,5 @@
 """Architecture registry: --arch <id> -> model config and instance, for the
-architectures ported so far."""
+JAX package's ten architectures."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,36 +7,39 @@ import importlib
 
 import torch
 
+from .encdec import EncDecLM
 from .lm import DecoderLM, ModelConfig
 
 _ARCH_MODULES = {
+    "hymba-1.5b": "hymba_1_5b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "dbrx-132b": "dbrx_132b",
+    "granite-20b": "granite_20b",
     "llama3.2-1b": "llama3_2_1b",
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen3-14b": "qwen3_14b",
+    "xlstm-125m": "xlstm_125m",
+    "chameleon-34b": "chameleon_34b",
+    "whisper-small": "whisper_small",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
 
-# the JAX package's other architectures, not ported yet (ROADMAP.md, Queue A,
-# item 10)
-NOT_PORTED = ("hymba-1.5b", "moonshot-v1-16b-a3b", "dbrx-132b",
-              "granite-20b", "starcoder2-3b", "qwen3-14b", "xlstm-125m",
-              "chameleon-34b", "whisper-small")
-
 
 def get_config(name: str) -> ModelConfig:
     if name not in _ARCH_MODULES:
-        if name in NOT_PORTED:
-            raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md, "
-                           f"Queue A, item 10); ported: {ARCH_NAMES}")
-        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}, not "
-                       f"yet ported: {NOT_PORTED}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG
 
 
-def build_model(cfg_or_name) -> DecoderLM:
+def build_model(cfg_or_name):
+    """``EncDecLM`` for the audio family, ``DecoderLM`` for the others."""
     cfg = (get_config(cfg_or_name) if isinstance(cfg_or_name, str)
            else cfg_or_name)
+    if cfg.family == "audio":
+        return EncDecLM(cfg)
     return DecoderLM(cfg)
 
 
@@ -57,7 +60,7 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         vocab=256,
         n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
         moe_top_k=min(cfg.moe_top_k, 2) if cfg.moe_top_k else 0,
-        moe_capacity_factor=4.0,
+        moe_capacity_factor=4.0,  # dropless at smoke-test scale
         ssm_state=min(cfg.ssm_state, 8) if cfg.ssm_state else 0,
         window=min(cfg.window, 16) if cfg.window else 0,
         enc_layers=2 if cfg.enc_layers else 0,

@@ -3,11 +3,20 @@
 Requests enter a waiting queue; each engine step either (a) prefills a
 waiting request into a free cache slot or (b) decodes one token for every
 active slot. Slots whose sequence emits EOS (or hits max_new_tokens) free
-their cache row. The JAX package's engine, on the port's ``DecoderLM``: the
-engine runs where its parameters are, with a float32 cache as in the
-reference, and its decode steps go through ``DecoderLM.decode_step`` (the
-einsum attention path, as in the reference: the decode kernel's lane is
-``layers.attention_decode(..., use_kernel=True)``).
+their cache row. The JAX package's engine, on the port's ``DecoderLM`` or
+``EncDecLM``: the engine runs where its parameters are and holds whatever
+cache the model's ``init_cache`` gives, in float32 as in the reference (a
+``KVCache`` a layer; a dict of ``KVCache`` and ``SSMCache`` for the hybrid
+family; ``MLSTMCache`` and ``SLSTMState`` for xLSTM; ``EncDecLM.Cache``),
+and its decode steps go through the model's ``decode_step`` (the einsum
+attention path, as in the reference: ``decode_step(..., use_kernel=True)``
+is the decode kernel's lane).
+
+Two behaviours of the reference that the port keeps: a slot's recurrent
+state (SSM, mLSTM, sLSTM) is not reset when a new request takes its row,
+and every row's state advances while another row's prompt is prefilled;
+an ``EncDecLM`` decodes against the zero cross K/V of ``init_cache`` (no
+frames enter the engine).
 """
 from __future__ import annotations
 

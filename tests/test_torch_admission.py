@@ -48,6 +48,7 @@ from repro_torch.serve import (Arrival, ExternalEvents, OnlineAdmissionEngine,
 from repro_torch.sim import draw_arrival_stream, make_run
 from repro_torch.sim.simulator import _steps
 from torch_lockstep import port_config, reference_draws
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 # tests/test_online_admission.py's configurations
 CFG = SimConfig(capacity=500.0, arrival_rate=0.08, horizon_hours=30 * 24.0,

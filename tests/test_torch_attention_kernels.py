@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FOPS
 from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      split3)
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_TOL = {"float32": 3e-5, "bfloat16": 2e-2}

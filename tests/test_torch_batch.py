@@ -39,6 +39,7 @@ from repro_torch.kernels.moment_curves import ref as PREF
 from repro_torch.sim import (draw_arrival_stream, make_config, make_run,
                              run_batch, run_keyed_batch, split_seeds)
 from torch_lockstep import port_config, reference_draws
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 T_PRIORS = bridge.from_reference(AZURE_PRIORS)
 TOL_EL = dict(rtol=2e-4, atol=1e-5)

@@ -39,19 +39,9 @@ from repro_torch.benchmarks import kernels_bench, serve_bench, tuning_bench
 from repro_torch.benchmarks import run as bench_run
 from repro_torch.benchmarks.common import SMOKE_SCALE
 from repro_torch.serve import format_operating_derived, operating_row_name
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True)
-def one_cpu_thread():
-    """One intra-op thread: the drivers' and examples' runs are many small
-    CPU ops, which slow down many times over when parallel test workers
-    oversubscribe the cores with intra-op threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_benchmarks(name):

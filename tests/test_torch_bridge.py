@@ -13,6 +13,7 @@ from repro.sim import SimConfig, make_admission_core
 from repro_torch import bridge
 from repro_torch.core.moments import MomentCurves as TMomentCurves
 from repro_torch.sim.core import CoreState as TCoreState
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 CFG = SimConfig(capacity=500.0, arrival_rate=0.08, horizon_hours=30 * 24.0,
                 dt=24.0, max_slots=16, max_arrivals=4, d_points=8,

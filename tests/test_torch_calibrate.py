@@ -35,6 +35,7 @@ from repro_torch.tuning import (KPoint, calibrate, eval_theta_grid,
                                 parse_kcurve_rows, pick_agg_refresh,
                                 pick_from_curve, sla_ci, sweep_kcurve,
                                 theta_space, to_param)
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 KINDS = (ZEROTH, FIRST, SECOND)
 IDS = ["zeroth", "first", "second"]

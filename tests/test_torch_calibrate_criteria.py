@@ -21,6 +21,7 @@ from repro_torch.tuning import (calibrate, eval_theta_grid, from_param,
                                 theta_space, to_param)
 from test_torch_calibrate_parity import IDS, KINDS, LADDERS
 from torch_lockstep import InjectedRuns
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 #: tests/test_tuning.py's allowance: one run-level fluke
 MONOTONE_TOL = 1.5e-3

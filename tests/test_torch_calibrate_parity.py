@@ -16,6 +16,7 @@ from repro.tuning import eval_theta_grid as r_eval_theta_grid
 from repro_torch.core import FIRST, SECOND, ZEROTH
 from repro_torch.tuning import calibrate, eval_theta_grid
 from torch_lockstep import InjectedRuns
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 KINDS = (ZEROTH, FIRST, SECOND)
 IDS = ["zeroth", "first", "second"]

@@ -25,7 +25,9 @@ view that TMA cannot copy. A small
 simulator run on the card must repeat bit for bit and conserve deployments,
 the online engine on the card must equal that run bit for bit (and its
 pump thread launch on the engine's stream), and a small LM on the card
-must match the same LM on the CPU.
+must match the same LM on the CPU, as must each other architecture's
+reduced config (flash lane forward, decode-kernel decode steps). Both
+attention kernels also run at the families' G = 5, 6, 12 and 48.
 """
 import numpy as np
 import pytest
@@ -41,7 +43,8 @@ from repro_torch.kernels.decode_gqa import kernel as DG
 from repro_torch.kernels.decode_gqa import ref as DR
 from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.flash_attention import ref as FR
-from repro_torch.models import DecoderLM, get_config
+from repro_torch.models import (ARCH_NAMES, DecoderLM, build_model,
+                                get_config, reduced_config)
 from repro_torch.sim import make_config, make_run
 
 pytestmark = pytest.mark.cuda
@@ -460,8 +463,11 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-@pytest.mark.parametrize("s,h,kvh,dh", [(100, 8, 2, 64), (256, 4, 1, 128),
-                                        (1000, 32, 8, 64)])
+@pytest.mark.parametrize("s,h,kvh,dh", [
+    (100, 8, 2, 64), (256, 4, 1, 128), (1000, 32, 8, 64),
+    # the families' G = 5 (Dh 64 and 128), 6, 12 and 48
+    (300, 25, 5, 64), (300, 40, 8, 128), (300, 48, 8, 128),
+    (300, 24, 2, 128), (300, 48, 1, 128)])
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, dict(rtol=2e-5, atol=2e-5)),
     # one bf16 ulp (2^-7 of the value) of the float32 result rounded
@@ -549,7 +555,10 @@ def test_flash_bf16_refuses_misaligned_views(card):
     (77, 32, 8, 64), (2048, 8, 1, 128),
     # G = 1, 2, 8 and 16, Dh = 256
     (1500, 8, 8, 64), (1500, 16, 8, 128), (1500, 32, 4, 64),
-    (3000, 16, 1, 64), (1200, 8, 2, 256)])
+    (3000, 16, 1, 64), (1200, 8, 2, 256),
+    # the families' G = 5 (Dh 64 and 128), 6, 12 and 48
+    (1500, 25, 5, 64), (1500, 40, 8, 128), (1500, 48, 8, 128),
+    (1500, 24, 2, 128), (1500, 48, 1, 128)])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain_version(card, s, h, kvh, dh, kv_dtype):
     gen = torch.Generator(device=card).manual_seed(s + h)
@@ -652,6 +661,51 @@ def test_small_lm_on_card_matches_cpu(card):
                                                   caches[d])
         torch.testing.assert_close(out[card].cpu(), out["cpu"], rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
+                                  if n != "llama3.2-1b"])
+def test_each_family_on_card_matches_cpu(card, name):
+    """Each other architecture's reduced config (2 layers, d_model 64,
+    float32, no TF32) with head_dim 64, which the flash kernel takes: the
+    forward with the flash lane, and decode steps with the decode kernel,
+    on the card against the same model on the CPU."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config(get_config(name)), head_dim=64,
+                              use_flash_kernel=True)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    p_card = model.init(torch.Generator().manual_seed(0), device=card)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+    extra = {}
+    if cfg.family == "audio":
+        extra = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))}
+    before = FA.LAUNCHES["flash_attention"]
+    got = model.forward(p_card, tokens.to(card),
+                        **{k: v.to(card) for k, v in extra.items()})
+    attn = sum(t in ("attn", "hybrid")
+               for t in getattr(model, "layer_types", ()))
+    assert FA.LAUNCHES["flash_attention"] == before + attn
+    torch.testing.assert_close(got.cpu(), model.forward(p_cpu, tokens,
+                                                        **extra),
+                               rtol=1e-4, atol=1e-4)
+    caches = {d: model.init_cache(2, 24, dtype=torch.float32, device=d)
+              for d in ("cpu", card)}
+    before = DG.LAUNCHES["decode_gqa"]
+    for t in range(20):
+        out = {}
+        for d, p in (("cpu", p_cpu), (card, p_card)):
+            out[d], caches[d] = model.decode_step(
+                p, tokens[:, t].to(d), caches[d], use_kernel=True)
+        torch.testing.assert_close(out[card].cpu(), out["cpu"], rtol=1e-4,
+                                   atol=1e-4)
+    decoders = (cfg.n_layers if cfg.family == "audio"
+                else sum(t in ("attn", "hybrid") for t in model.layer_types))
+    assert DG.LAUNCHES["decode_gqa"] == before + 20 * decoders
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ from repro_torch.core import AZURE_PRIORS, PolicyParams
 from repro_torch.core.belief import GammaBelief
 from repro_torch.core.moments import MomentCurves, aggregate_moment_curves
 from repro_torch.core.policies import admit_sequential_verbose
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 DATA = pathlib.Path(__file__).parent / "data"
 CASES = {"first": "torch_divergence_quick_first.npz",

@@ -36,6 +36,7 @@ from repro_torch.core import make_policy
 from repro_torch.obs import snapshot_to_prometheus
 from repro_torch.serve import Arrival, ExternalEvents, OnlineAdmissionEngine
 from torch_lockstep import port_config, reference_draws
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 SPEC = RT.TraceSpec(horizon_hours=240 * 24.0, arrival_rate=0.12,
                     max_deployments=2048, max_events=8)
@@ -159,18 +160,7 @@ def test_ramp_detected(port_null):
     assert PU.detect_drift(tr, port_null, window_hours=WINDOW).fired
 
 
-@pytest.fixture
-def one_cpu_thread():
-    """One intra-op thread: the protocol's runs are many small CPU ops,
-    which slow down many times over when parallel test workers
-    oversubscribe the cores with intra-op threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_drift_protocol_meets_reference_criteria(one_cpu_thread):
+def test_drift_protocol_meets_reference_criteria():
     """``tests/test_drift.py``'s regret protocol test, at its spec and
     config, on the port's draws."""
     from repro_torch.sim import make_config as p_make_config

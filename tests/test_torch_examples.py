@@ -30,21 +30,11 @@ from repro.core.processes import sample_params as j_sample_params
 from repro.core.processes import sample_pseudo_observations as j_sample_obs
 from repro_torch import bridge
 from repro_torch.examples import (admission_serving, calibrate_policy,
-                                  drift_recalibration, quickstart,
+                                  drift_recalibration, quickstart, serve_lm,
                                   telemetry_dashboard, trace_scenarios)
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 FEE_RTOL = 2e-6     # float32: a few ulps through lgamma, exp and a peak
-
-
-@pytest.fixture(autouse=True)
-def one_cpu_thread():
-    """One intra-op thread: the drivers' and examples' runs are many small
-    CPU ops, which slow down many times over when parallel test workers
-    oversubscribe the cores with intra-op threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_example_fees():
@@ -100,6 +90,7 @@ EXAMPLES = {
         "== 1. streaming prior fit", "4 windows merged:",
         "null: threshold=", "drift_step :", "after 8 scrapes:",
         "triggered within oracle CI")),
+    "serve_lm": (serve_lm, ("served 4 requests / 24 tokens", "req0: ")),
 }
 
 

@@ -52,6 +52,7 @@ from repro_torch.sim import (ROUTERS, FleetConfig, RouteContext,
                              make_run, stream_config)
 from torch_lockstep import (fleet_policies, port_config, port_fleet_config,
                             reference_fleet_draws, router_draws)
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 # tests/test_fleet.py's configuration, with a refresh every 3 steps (the
 # golden configuration's K) and the rider on

@@ -18,6 +18,7 @@ from repro_torch.core import fleet_policy
 from repro_torch.sim import ROUTERS, make_fleet_run
 from torch_lockstep import (fleet_policies, port_fleet_config,
                             reference_fleet_draws)
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 
 

@@ -46,6 +46,7 @@ from repro_torch.sim import (ROUTERS, FleetConfig, FleetMetrics,
 from repro_torch.sim.simulator import _steps
 from torch_lockstep import (engine_route_draws, fleet_policies,
                             port_fleet_config, reference_fleet_draws)
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 CFG = j_make_config(capacity=500.0, arrival_rate=0.12,
                     horizon_hours=30 * 24.0, dt=24.0, max_slots=96,

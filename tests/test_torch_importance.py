@@ -30,6 +30,7 @@ from repro_torch.sim import importance as PI
 from repro_torch.sim import PriorArrivalSource, make_run, RunMetrics
 from repro_torch.core import SECOND, make_policy
 from torch_lockstep import port_config
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 # a month is 730 h: 120 days at dt 24 is 4 months, two arrival slots a step
 CFG = make_config(capacity=300.0, arrival_rate=0.2, horizon_hours=120 * 24.0,

@@ -16,6 +16,7 @@ from repro_torch import bridge
 from repro_torch import traces as PT
 from repro_torch.core import SECOND, geometric_grid, make_policy
 from repro_torch.sim import PSEUDO, make_config, make_run
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "azure_cortez_sample.csv")

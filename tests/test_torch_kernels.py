@@ -22,6 +22,7 @@ from repro_torch import bridge
 from repro_torch.kernels.moment_curves import kernel as PK
 from repro_torch.kernels.moment_curves import ops as POPS
 from repro_torch.kernels.moment_curves import ref as PREF
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 PRIORS = AZURE_PRIORS
 T_PRIORS = bridge.from_reference(PRIORS)

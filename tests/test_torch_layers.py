@@ -17,6 +17,7 @@ from repro.models import layers as JL
 from repro_torch import bridge
 from repro_torch.models import layers as TL
 from repro_torch.models.spec import Params
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)

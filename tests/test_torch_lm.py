@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import ARCH_NAMES as JAX_ARCH_NAMES
 from repro.models import build_model as jax_build
 from repro.models import get_config as jax_get_config
 from repro.models import reduced_config as jax_reduced
@@ -24,6 +25,7 @@ from repro_torch.configs.llama3_2_1b import CONFIG
 from repro_torch.models import (ARCH_NAMES, DecoderLM, build_model,
                                 get_config, reduced_config)
 from repro_torch.models.spec import init_params
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 # one bf16 ulp: float32 keys that differ in the last bits can round to
@@ -128,7 +130,7 @@ def test_config_is_the_reference_config():
     for field in dataclasses.fields(CONFIG):
         if field.name != "dtype":
             assert getattr(CONFIG, field.name) == getattr(want, field.name)
-    assert CONFIG.dtype == torch.bfloat16 and ARCH_NAMES == ("llama3.2-1b",)
+    assert CONFIG.dtype == torch.bfloat16 and ARCH_NAMES == JAX_ARCH_NAMES
 
 
 def test_init_statistics():
@@ -157,12 +159,23 @@ def test_init_statistics():
 
 
 def test_unported_families_and_archs_raise():
-    with pytest.raises(NotImplementedError, match="Queue A, item 10"):
-        DecoderLM(dataclasses.replace(CONFIG, family="moe"))
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("qwen3-14b")
+    """Every family builds; what still raises is an unknown arch and the
+    mesh options (ROADMAP Queue A item 5): expert-parallel MoE dispatch
+    (``moe_local_dispatch`` with a mesh) and a mesh anywhere else."""
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
+    cfg = dataclasses.replace(
+        reduced_config(get_config("moonshot-v1-16b-a3b")),
+        moe_local_dispatch=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    h = torch.zeros((1, 2, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
+        model._moe(params["layers"][0]["ffn"], h, mesh=object())
+    assert model._moe(params["layers"][0]["ffn"], h).y.shape == h.shape
+    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
+        model.forward(params, torch.zeros((1, 2), dtype=torch.int64),
+                      mesh=object())
 
 
 def test_entry_points_default_to_the_card():

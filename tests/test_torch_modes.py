@@ -20,6 +20,7 @@ from repro_torch.core import FIRST, SECOND, make_policy
 from repro_torch.sim import MIX_LABELED, MIX_UNLABELED, PSEUDO, make_run
 from repro_torch.tuning import eval_theta_grid
 from torch_lockstep import InjectedRuns, port_config
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 RTOL_METRICS = 1e-5
 MODES = {"pseudo5": (PSEUDO, 5), "pseudo50": (PSEUDO, 50),

@@ -16,6 +16,7 @@ from repro_torch.core import FIRST, SECOND
 from repro_torch.tuning import calibrate
 from test_torch_modes import RTOL_METRICS, _cfg
 from torch_lockstep import InjectedRuns
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("mode, kind", [("labeled", SECOND),

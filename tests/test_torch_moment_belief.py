@@ -26,6 +26,7 @@ from repro_torch.kernels.moment_curves import kernel as PK
 from repro_torch.kernels.moment_curves import ops as POPS
 from repro_torch.kernels.moment_curves import ref as PREF
 from repro_torch.sim import make_config, make_run
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 T_PRIORS = bridge.from_reference(AZURE_PRIORS)
 TOL_EL = dict(rtol=2e-4, atol=1e-5)

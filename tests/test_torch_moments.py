@@ -18,6 +18,7 @@ from repro.core.belief import GammaBelief
 from repro_torch import bridge
 from repro_torch.core import geometric_grid as t_geometric_grid
 from repro_torch.core import moments as P
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 PRIORS = AZURE_PRIORS
 T_PRIORS = bridge.from_reference(PRIORS)

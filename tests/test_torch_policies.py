@@ -16,6 +16,7 @@ from repro.core.moments import MomentCurves
 from repro_torch import bridge
 from repro_torch.core import policies as P
 from repro_torch.core.moments import MomentCurves as TMomentCurves
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 KINDS = {"zeroth": R.ZEROTH, "first": R.FIRST, "second": R.SECOND}
 CAPACITY = 2_000.0

@@ -32,6 +32,7 @@ from repro_torch.core.moments import MomentCurves
 from repro_torch.sim import MIX_UNLABELED
 from repro_torch.sim import make_admission_core
 from torch_lockstep import port_config
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 PRIORS = AZURE_PRIORS
 T_PRIORS = bridge.from_reference(PRIORS)

@@ -33,6 +33,7 @@ from repro_torch.core import processes as PP
 from repro_torch.sim import MIX_LABELED, MIX_UNLABELED, PSEUDO
 from repro_torch.sim import draw_arrival_stream
 from torch_lockstep import port_config
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 PRIORS = AZURE_PRIORS
 T_PRIORS = bridge.from_reference(PRIORS)

@@ -26,6 +26,7 @@ from repro_torch.core.processes import (DeploymentParams, sample_params,
                                         sample_step_events)
 from repro_torch.sim import draw_arrival_stream
 from torch_lockstep import port_config
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 PRIORS = AZURE_PRIORS
 T_PRIORS = bridge.from_reference(PRIORS)

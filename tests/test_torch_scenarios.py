@@ -19,6 +19,7 @@ from repro_torch import bridge
 from repro_torch.sim import make_run
 from repro_torch.tuning import calibrate_scenario, replay_stream_batch
 from torch_lockstep import InjectedRuns, port_config
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 SPEC = TraceSpec(horizon_hours=60 * 24.0, arrival_rate=0.3,
                  max_deployments=512, max_events=8)

@@ -22,6 +22,7 @@ from repro_torch import bridge
 from repro_torch.launch import serve as launcher
 from repro_torch.models import build_model, get_config, reduced_config
 from repro_torch.serve import Request, ServeEngine
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 MARGIN_FLOOR = 1e-4
 

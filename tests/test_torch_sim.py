@@ -24,6 +24,7 @@ from repro_torch import bridge
 from repro_torch.sim import SimConfig as TSimConfig
 from repro_torch.sim import make_admission_core as t_make_admission_core
 from repro_torch.sim import make_run as t_make_run
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 # the golden configuration of tests/test_admission_core.py
 CFG = SimConfig(capacity=500.0, arrival_rate=0.08, horizon_hours=30 * 24.0,

@@ -53,6 +53,7 @@ from repro_torch.obs import (DecisionTracer, HostHistogram, Metric,
 from repro_torch.obs import counters as C
 from repro_torch.sim import make_run
 from torch_lockstep import port_config, reference_draws
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the golden configuration of tests/test_telemetry.py

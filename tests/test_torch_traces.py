@@ -35,6 +35,7 @@ from repro_torch.core import make_policy
 from repro_torch.sim import make_run
 from repro_torch.traces import synth as PS
 from torch_lockstep import port_config, reference_draws
+from torch_lockstep import one_cpu_thread  # noqa: F401  (autouse)
 
 SMALL_SPEC = RT.TraceSpec(horizon_hours=60 * 24.0, arrival_rate=0.3,
                           max_deployments=512, max_events=8)

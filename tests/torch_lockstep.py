@@ -16,6 +16,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from repro.core import SECOND, make_policy
 from repro.core.processes import sample_step_events
@@ -25,6 +27,18 @@ from repro_torch import bridge
 from repro_torch.sim import SimConfig as PortSimConfig
 from repro_torch.sim import make_run
 
+
+
+@pytest.fixture(autouse=True)
+def one_cpu_thread():
+    """One torch intra-op thread for each test of a module that imports
+    this fixture. The tier-1 run has six xdist workers on eight cores, and
+    torch gives each worker a thread a core: runs of many small ops then
+    slow down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 def port_config(cfg):
     """The port's ``SimConfig`` of a reference ``SimConfig``."""
