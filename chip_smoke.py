@@ -35,12 +35,14 @@ time:
                (rho 0.112) and ZEROTH (threshold 8,864), the paper's tuned
                values; the launch counters show the SECOND run went through
                both belief-form kernels (365 aggregate and 4,380 candidate
-               launches) and no packed one.
-  4b. batch  — the same SECOND run as one batch of 24 seeds, 2018 among
-               them: 4,380 candidate launches (each the batch's 24 x 8
-               rows) and 365 aggregate launches for the whole batch (each
-               over all 24 runs); run 2018 equal to phase 4's bit for bit;
-               runs x steps/s beside phase 4's steps/s.
+               launches) and no packed one. Then SECOND for its first 720
+               steps (``SHORT_STEPS``), the reference of the runs that
+               phases 4b, 11, 12 and 13 cut to that depth since PR 23.
+  4b. batch  — the same SECOND run (720 steps) as one batch of 24 seeds,
+               2018 among them: 720 candidate launches (each the batch's
+               24 x 8 rows) and 60 aggregate launches for the whole batch
+               (each over all 24 runs); run 2018 equal to phase 4's bit
+               for bit; runs x steps/s beside phase 4's steps/s.
   4c. Table 2 — ``repro_torch.benchmarks.common.tune_and_eval`` at the
                ``quick`` preset for ZEROTH, FIRST and SECOND: theta,
                utilization with its BCa interval, SLA rate, stages,
@@ -55,7 +57,8 @@ time:
                it) and one aggregate a refresh; run 0 equal to its run
                alone bit for bit; runs x steps/s, launches a step,
                utilization.
-  4e. figures — ``repro_torch.benchmarks`` ``fig1_priors`` and
+  4e. figures — ``repro_torch.benchmarks`` ``fig1_priors`` at the
+               ``tiny`` preset (``quick`` before PR 23) and
                ``fig2_pricing`` (with §8's fees) at the ``quick`` preset,
                each row beside the paper's number (not a gate;
                utilizations finite in (0, 1]). The marginal ablation, whose
@@ -109,8 +112,9 @@ time:
                for all 4,380 ticks: accept masks and metrics equal phase 4's
                bit for bit, 365 aggregate and 4,380 row launches; ticks/s,
                decisions/s, a flush's host ms (p50/p99) and device ms
-               between CUDA events. Again with the telemetry rider (same
-               bits; admits + rejects = decisions). The naive lane for 200
+               between CUDA events. Again with the telemetry rider for 720
+               ticks (phase 4's 720-step run's bits; admits + rejects =
+               decisions). The naive lane for 200
                ticks (one aggregate launch a request). The deadline
                scheduler (SLO 50 ms) fed by a ticker thread and 4 submitter
                threads for 500 ticks: every future resolves; misses and
@@ -121,9 +125,9 @@ time:
                fleet benchmark splits it: 8,000 / 6,000 / 4,000 / 2,000
                cores, 4,096 slots each, SECOND rho 0.112 through
                ``fleet_policy``. A fleet of one (all 20,000 cores, 8,192
-               slots) takes phase 4's decisions bit for bit. Each router
-               (least utilized and power of two for all 4,380 steps,
-               random and cascade for 720) holds tests/test_fleet.py's
+               slots) takes phase 4's decisions bit for bit over 720 steps.
+               Each router (for 720 steps; least utilized and power of two
+               ran all 4,380 before PR 23) holds tests/test_fleet.py's
                invariants (no cluster over its capacity, alive = accepted
                - overflow - departed, fleet fields the clusters' sums, the
                cascade admits every routed arrival and counts the rest as
@@ -147,8 +151,9 @@ time:
                observed fits within tests/test_traces.py's tolerances; the
                Azure sample ingested, fitted (observed) and replayed in a
                short run; the baseline replayed through ``make_run`` at
-               PAPER_FULL with 16 arrivals a step (4,380 row and 365
-               aggregate launches; its GLOBAL stream built on the card
+               PAPER_FULL with 16 arrivals a step for its first 720 steps
+               (720 row and 60 aggregate launches; all 4,380 before PR 23;
+               its GLOBAL stream built on the card
                equal to the CPU's bit for bit); ``replay_stream_batch`` of
                24 traces through ``run_keyed_batch`` for their first 720
                steps; ``make_importance_plan``
@@ -208,6 +213,28 @@ time:
                (tokens/s), and ``python -m repro_torch.examples.serve_lm
                --smoke``. Both attention kernels must launch on the model
                paths (counted from 0 around each).
+ 16. training — llama3.2-1b trained at full width through
+               ``launch.train.train`` at the launcher's defaults (B 8, S
+               128, float32 state, bf16 compute, remat, the einsum lane),
+               20 steps: loss finite (it starts at ln V on the launcher's
+               near-uniform synthetic tokens and cannot fall in 20 steps),
+               ms a step, tokens/s, peak memory; the final 14.8 GB
+               checkpoint (512 MiB shards, in a ``tempfile.mkdtemp()``
+               directory whose free space is checked first) timed and
+               restored to the card bit for bit. One launcher step
+               profiled, then 8 steps on one batch, whose loss must fall
+               by 1 nat. Then 3
+               steps at B 4, S 2,048 (tokens/s, 6 N tokens / step time
+               against 989 TFLOP/s bf16, peak memory), 3 with microbatches
+               2 and 3 with compression; the trained weights' forward (B 2,
+               S 2,048) with the flash lane on and off without grad (phase
+               8's checks; flash launches counted from 0), and the flash
+               kernel refused under grad. Then reduced llama3.2-1b through
+               ``launch.train`` with a failure mid-run against an
+               uninterrupted run (the largest parameter gap), ``python -m
+               repro_torch.examples.train_lm --smoke``, and one train step
+               of a reduced config of each family (dense, moe, hybrid, ssm,
+               audio) on the card against the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -276,6 +303,11 @@ LOGIT_TIE = 1e-4             # float32 logits closer than this are a tie
 DEVICE = "cuda"
 ENGINE_SLO_MS = 50.0         # phase 11's deadline scheduler: decision SLO
 MODES_STEPS = 720            # phase 4d's depth: 180 days of the 3 years
+# the depth of phase 4b's batch, phase 11's engine with telemetry, phase
+# 12's fleet of one and routers and phase 13's replayed run (PR 23 cut them
+# from the 4,380 steps of PAPER_FULL to make room for phase 16); phase 4
+# runs SECOND at this depth too, as their reference
+SHORT_STEPS = 720
 
 
 def log(msg):
@@ -683,22 +715,45 @@ def main_path(records):
         if kind == SECOND:
             for k in records:
                 records[k]["launches"] = launches[k]
+    # SECOND cut to SHORT_STEPS: the reference of the phases cut to it
+    short = short_config()
+    run = make_run(short, grid, SECOND, record_decisions=True, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, accept = run(2018, make_policy(SECOND, capacity=cfg.capacity,
+                                      rho=PAPER_TABLE2["second_rho"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["second_short"] = dict(metrics=m, accept=accept,
+                               steps_per_s=short.n_steps / wall)
+    log(f"PAPER_FULL second, the first {short.n_steps} steps (the reference "
+        f"of phases 4b, 11, 12 and 13's runs at that depth): utilization "
+        f"{float(m.utilization):.4f}, {short.n_steps / wall:.1f} steps/s")
     return out
+
+
+def short_config():
+    """PAPER_FULL (K = 12) cut to its first SHORT_STEPS steps."""
+    from repro_torch.configs import PAPER_FULL
+
+    cfg = PAPER_FULL._replace(agg_refresh_steps=12)
+    return cfg._replace(horizon_hours=SHORT_STEPS * cfg.dt)
 
 
 
 def batch_path(records, single):
-    """Phase 4b: phase 4's SECOND run as one batch of 24 seeds."""
+    """Phase 4b: phase 4's SECOND run, cut to SHORT_STEPS, as one batch of
+    24 seeds."""
     import math
 
     import torch
-    from repro_torch.configs import PAPER_FULL, PAPER_TABLE2
-    from repro_torch.core import SECOND, geometric_grid, make_policy
+    from repro_torch.configs import PAPER_TABLE2
+    from repro_torch.core import SECOND, make_policy
     from repro_torch.kernels.moment_curves import kernel as K
     from repro_torch.sim import make_run, split_seeds
 
-    cfg = PAPER_FULL._replace(agg_refresh_steps=12)
-    grid = geometric_grid(cfg.dt, 3 * cfg.horizon_hours, 48, device=DEVICE)
+    cfg = short_config()
+    grid = geometric_grid_full()
     seeds = split_seeds(2018, 23)
     seeds.insert(5, 2018)
     run = make_run(cfg, grid, SECOND, device=DEVICE)
@@ -724,7 +779,7 @@ def batch_path(records, single):
     util = m.utilization.cpu()
     if not bool(((util > 0.0) & (util <= 1.0)).all()):
         raise AssertionError(f"batch: utilizations {util}")
-    alone = single["second"]["metrics"]
+    alone = single["second_short"]["metrics"]
     for name in alone._fields:
         if not torch.equal(getattr(m, name)[5], getattr(alone, name)):
             raise AssertionError(f"batch run 2018: {name} differs from "
@@ -732,11 +787,12 @@ def batch_path(records, single):
     rate = len(seeds) * cfg.n_steps / wall
     for name in ("moment_curves_belief", "moment_curves_agg_belief"):
         records[name]["launches_batch"] = launches[name]
-    log(f"PAPER_FULL second, a batch of {len(seeds)} runs: wall "
+    one = single["second_short"]["steps_per_s"]
+    log(f"PAPER_FULL second, the first {cfg.n_steps} steps (cut from "
+        f"4,380), a batch of {len(seeds)} runs: wall "
         f"{wall:.2f} s, {cfg.n_steps / wall:.1f} batched steps/s, "
         f"{rate:.1f} runs x steps/s (phase 4, one run: "
-        f"{single['second']['steps_per_s']:.1f} steps/s; "
-        f"{rate / single['second']['steps_per_s']:.2f}x); utilization "
+        f"{one:.1f} steps/s; {rate / one:.2f}x); utilization "
         f"mean {float(util.mean()):.4f} (min {float(util.min()):.4f}, max "
         f"{float(util.max()):.4f}), failure rate mean "
         f"{float(m.failure_rate.mean()):.3e}; launches {launches}; run "
@@ -937,8 +993,8 @@ def modes_path(records):
 
 
 def figures_quick():
-    """Phase 4e: Fig. 1 and Fig. 2 (with §8's fees) at the quick preset
-    through their drivers, each row beside the paper's number (not a gate):
+    """Phase 4e: Fig. 1 at the tiny preset and Fig. 2 (with §8's fees) at
+    the quick preset through their drivers, each row beside the paper's number (not a gate):
     finite utilizations in (0, 1]."""
     import math
 
@@ -946,11 +1002,12 @@ def figures_quick():
 
     checked = []
     t0 = time.perf_counter()
-    res = fig1_priors.results("quick", 0, DEVICE)
+    # Fig. 1 at the tiny preset since PR 23 (it took 85-123 s at quick)
+    res = fig1_priors.results("tiny", 0, DEVICE)
     checked += list(res.values())
     for row in fig1_priors.rows(res):
         log("  " + row)
-    log(f"  (Fig. 1: {time.perf_counter() - t0:.1f} s)")
+    log(f"  (Fig. 1 at tiny: {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     res = fig2_pricing.results("quick", 0, DEVICE)
     checked += list(res.values())
@@ -1942,10 +1999,10 @@ def engine_path(records, single):
     policy = make_policy(SECOND, rho=PAPER_TABLE2["second_rho"],
                          capacity=cfg.capacity)
     want = single["second"]
-    want_accept = want["accept"].cpu().numpy()
     n_refresh = cfg.n_steps // cfg.agg_refresh_steps
 
-    def check_equal(name, accept, m):
+    def check_equal(name, accept, m, want=want):
+        want_accept = want["accept"].cpu().numpy()
         if not np.array_equal(accept, want_accept):
             bad = np.argwhere(accept != want_accept)
             raise AssertionError(f"{name}: decisions differ from phase 4's "
@@ -1984,11 +2041,12 @@ def engine_path(records, single):
         f"{launches}; decisions and metrics equal phase 4's bit for bit; "
         f"{n_objects:,} Python objects tracked at its start, {gen2} full "
         "collections during it")
-    # 2. the same with the telemetry rider
-    tel_cfg = cfg._replace(telemetry=True)
+    # 2. the same with the telemetry rider, cut to SHORT_STEPS ticks
+    tel_cfg = short_config()._replace(telemetry=True)
     eng_t, accept_t, m_t, wall_t, *_ = engine_run(tel_cfg, grid, policy,
-                                                  cfg.n_steps)
-    check_equal("engine with telemetry", accept_t, m_t)
+                                                  tel_cfg.n_steps)
+    check_equal("engine with telemetry", accept_t, m_t,
+                single["second_short"])
     summary = eng_t.metrics_snapshot()["telemetry"]
     decided = (summary["n_admit"] + summary["n_reject_capacity"]
                + summary["n_reject_policy"])
@@ -1996,15 +2054,18 @@ def engine_path(records, single):
         raise AssertionError(f"rider: {decided} admits + rejects, "
                              f"{summary['n_routed']} routed, "
                              f"{eng_t.decisions} decisions")
-    if summary["n_windows"] != cfg.n_steps or \
-            summary["n_refreshes"] != n_refresh:
+    if summary["n_windows"] != tel_cfg.n_steps or \
+            summary["n_refreshes"] != tel_cfg.n_steps // 12:
         raise AssertionError(f"rider: {summary['n_windows']} windows, "
                              f"{summary['n_refreshes']} refreshes")
     short = {k: v for k, v in summary.items() if not isinstance(v, list)}
     short["staleness_hist"] = summary["staleness_hist"][:13]
-    log(f"engine with telemetry: {cfg.n_steps / wall_t:.1f} ticks/s "
-        f"({wall_t / wall:.3f}x the wall without); decisions and metrics "
-        f"equal phase 4's bit for bit; rider {json.dumps(short)}")
+    tick_s = wall / cfg.n_steps
+    log(f"engine with telemetry, the first {tel_cfg.n_steps} ticks (cut "
+        f"from 4,380): {tel_cfg.n_steps / wall_t:.1f} ticks/s "
+        f"({wall_t / tel_cfg.n_steps / tick_s:.3f}x a tick's wall without); "
+        f"decisions and metrics equal phase 4's run at that depth bit for "
+        f"bit; rider {json.dumps(short)}")
 
     # 3. the naive lane: an aggregate recompute and a decision a request
     n_naive = 200
@@ -2125,8 +2186,10 @@ def engine_path(records, single):
 # PAPER_FULL's capacity as a big, two mid and a small cluster, each with
 # half the slots
 FLEET_FRACS = (0.4, 0.3, 0.2, 0.1)
-FLEET_ROUTER_STEPS = {"least_utilized": None, "power_of_two": None,
-                      "random": 720, "cascade": 720}   # None: all 4,380
+# every router's run, cut from the 4,380 steps (PR 23: random and cascade
+# since PR 19, least utilized and power of two since PR 23)
+FLEET_ROUTER_STEPS = dict.fromkeys(("least_utilized", "power_of_two",
+                                    "random", "cascade"), SHORT_STEPS)
 FLEET_BATCH_STEPS = 600      # phase 12's batch of 24 and its engine
 FLEET_PROFILE_STEPS = 12     # profiles of 12 and 24 steps, differenced
 
@@ -2376,8 +2439,9 @@ def fleet_path(records, single):
             raise AssertionError(f"{name}: launches {got}, want {want}")
         launches_fleet[name] = got
 
-    # 1. a fleet of one is make_run: phase 4's decisions, bit for bit
-    one = fleet_config(capacities=(PAPER_FULL.capacity,))
+    # 1. a fleet of one is make_run: phase 4's decisions at SHORT_STEPS,
+    # bit for bit
+    one = fleet_config(SHORT_STEPS, capacities=(PAPER_FULL.capacity,))
     run = make_fleet_run(one, grid, SECOND, record_decisions=True,
                          device=DEVICE)
     torch.cuda.synchronize()
@@ -2388,7 +2452,7 @@ def fleet_path(records, single):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_of("fleet of one", one.base.n_steps)
-    want = single["second"]
+    want = single["second_short"]
     if not torch.equal(accept[:, 0], want["accept"]):
         raise AssertionError("fleet of one: decisions differ from phase 4's")
     for field in want["metrics"]._fields:
@@ -2397,9 +2461,10 @@ def fleet_path(records, single):
         if not torch.equal(got, getattr(want["metrics"], field)):
             raise AssertionError(f"fleet of one: {field} differs from "
                                  "phase 4's")
-    log(f"fleet of one at PAPER_FULL: {one.base.n_steps / wall:.1f} steps/s "
-        f"(phase 4's make_run {want['steps_per_s']:.1f}); decisions "
-        "[T, 1, A] and metrics equal phase 4's bit for bit")
+    log(f"fleet of one at PAPER_FULL, the first {one.base.n_steps} steps: "
+        f"{one.base.n_steps / wall:.1f} steps/s (phase 4's make_run "
+        f"{want['steps_per_s']:.1f}); decisions [T, 1, A] and metrics equal "
+        "phase 4's run at that depth bit for bit")
 
     # 2. the four routers on the four-cluster fleet
     caps = fleet_config().capacities
@@ -2691,7 +2756,9 @@ def trace_path(records):
     if not (0.0 < util <= 1.0) or float(m.arrivals_accepted) <= 0:
         raise AssertionError(f"Azure replay: {m}")
 
-    # 3. one replayed run at PAPER_FULL ------------------------------------
+    # 3. one replayed run at PAPER_FULL, its first TRACE_DEPTH_STEPS steps
+    # (PR 23; all 4,380 before) -------------------------------------------
+    rcfg = dcfg
     src = TraceArrivalSource(base)
     run = make_run(rcfg, grid, SECOND, arrival_source=src, device=DEVICE)
     m, wall = timed(lambda: run(2018, policy))
@@ -2710,8 +2777,9 @@ def trace_path(records):
                          dropped=dropped,
                          utilization=float(m.utilization),
                          failure_rate=float(m.failure_rate))
-    log(f"replayed TRACE_FULL baseline through make_run at PAPER_FULL "
-        f"(max_arrivals {REPLAY_MAX_ARRIVALS}, SECOND rho {rho}): "
+    log(f"replayed TRACE_FULL baseline through make_run at PAPER_FULL, the "
+        f"first {rcfg.n_steps} steps (max_arrivals {REPLAY_MAX_ARRIVALS}, "
+        f"SECOND rho {rho}): "
         f"{rcfg.n_steps / wall:.1f} steps/s, {dropped} dropped, utilization "
         f"{float(m.utilization):.4f}, failure rate "
         f"{float(m.failure_rate):.3e}; launches {launches['replay']}; the "
@@ -3589,6 +3657,430 @@ def families_path(records):
     log("phase 15 numbers: " + json.dumps(out, default=float))
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20                 # the full-width run at the launcher's defaults
+FIT_STEPS, FIT_DROP = 8, 1.0     # one batch fitted: its loss falls 1 nat
+SERVING_SHAPE = (4, 2048)        # (B, S) of the full-width steps at length
+SERVING_STEPS = 3
+FT_STEPS, FT_FAIL_AT, FT_CKPT_EVERY = 12, 6, 4
+# the largest parameter gap of the reduced run resumed after a failure
+# against the uninterrupted run, both on the card: 0, bit for bit, in the
+# first run of phase 16 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 23)
+FT_GAP_LIMIT = 0.0
+# one reduced config of each family: a train step on the card against the
+# CPU, loss and grad_norm at this tolerance
+TRAIN_FAMILIES = ("llama3.2-1b", "dbrx-132b", "hymba-1.5b", "xlstm-125m",
+                  "whisper-small")
+TRAIN_CARD_TOL = 1e-4
+TRAIN_LINE = re.compile(r"\[train\] step=(\d+) loss=(\S+) ")
+
+
+def run_train(argv):
+    """``launch.train.train`` on ``parse_args(argv)`` with its output
+    captured; returns (final step, {"losses": {step: loss}, "step_s":
+    {step: seconds}, "saves": [{"step", "s", "bytes", "tree"}], "text"}).
+    The launcher's synchronous ``checkpointer.save`` (its final save) is
+    timed and the tree it wrote kept; the straggler watchdog's observations
+    give each step's seconds."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.launch import train as T
+
+    saves, step_s = [], {}
+    save, watchdog = T.checkpointer.save, T.StragglerWatchdog
+
+    def timed_save(directory, step, tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(directory, step, tree)
+        secs = time.perf_counter() - t0
+        saves.append({"step": step, "s": secs, "tree": tree,
+                      "bytes": sum(f.stat().st_size
+                                   for f in Path(path).iterdir())})
+        return path
+
+    class Recording(watchdog):
+        def observe(self, step, step_time):
+            step_s[step] = step_time
+            return super().observe(step, step_time)
+
+    T.checkpointer.save, T.StragglerWatchdog = timed_save, Recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            final = T.train(T.parse_args(argv))
+    finally:
+        T.checkpointer.save, T.StragglerWatchdog = save, watchdog
+    text = buf.getvalue()
+    losses = {int(m.group(1)): float(m.group(2))
+              for m in TRAIN_LINE.finditer(text)}
+    return final, {"losses": losses, "step_s": step_s, "saves": saves,
+                   "text": text}
+
+
+def leaves_equal(got, want):
+    """(leaves, leaves that differ in any bit) of two trees of tensors."""
+    import torch
+    from repro_torch.models.spec import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} leaves against {len(b)}")
+    return len(a), sum(not (x.dtype == y.dtype and torch.equal(x, y))
+                       for x, y in zip(a, b))
+
+
+def full_width_run(out):
+    """Phase 16, 1: llama3.2-1b at full width through ``launch.train``, the
+    final 14.8 GB checkpoint restored bit for bit. Returns the final
+    state."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.models import build_model, get_config
+
+    vocab = get_config("llama3.2-1b").vocab
+    n_params = build_model(get_config("llama3.2-1b")).n_params()
+    state_bytes = 3 * 4 * n_params           # params, m and v in float32
+    ckdir = tempfile.mkdtemp(prefix="repro_train_")
+    free = shutil.disk_usage(ckdir).free
+    if free < 1.1 * state_bytes:
+        raise AssertionError(
+            f"phase 16 writes a {state_bytes / 1e9:.1f} GB checkpoint under "
+            f"{ckdir}, which has {free / 1e9:.1f} GB free: set TMPDIR to a "
+            "larger disk")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final, rec = run_train(
+            ["--arch", "llama3.2-1b", "--steps", str(TRAIN_STEPS),
+             "--ckpt-every", str(TRAIN_STEPS + 1), "--log-every", "1",
+             "--ckpt-dir", ckdir])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = rec["losses"]
+        first, last = losses[0], losses[TRAIN_STEPS - 1]
+        if final != TRAIN_STEPS or not all(map(math.isfinite,
+                                               losses.values())):
+            raise AssertionError(f"train: final step {final}, losses "
+                                 f"{losses}")
+        step_s = statistics.median(
+            s for k, s in rec["step_s"].items() if k >= 2)
+        tokens = 8 * 128
+        (sv,) = rec["saves"]
+        state = sv["tree"]
+        with open(Path(ckdir) / f"step_{TRAIN_STEPS}" / "manifest.json") as f:
+            shards = json.load(f)["n_shards"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = checkpointer.restore(ckdir, TRAIN_STEPS, state,
+                                        device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        n, differ = leaves_equal(restored, state)
+        del restored
+        if differ:
+            raise AssertionError(f"{differ} of {n} restored leaves differ")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"-- launch.train --arch llama3.2-1b (full width, {n_params:,} "
+        f"parameters, float32 state, bf16 compute, remat, einsum lane), B 8, "
+        f"S 128, {TRAIN_STEPS} steps in {wall:.1f} s: loss {first:.4f} -> "
+        f"{last:.4f}; {1e3 * step_s:.1f} ms a step (median of steps >= 2), "
+        f"{tokens / step_s:.0f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"   final checkpoint: {sv['bytes'] / 1e9:.2f} GB in {shards} shards, "
+        f"saved in {sv['s']:.1f} s ({sv['bytes'] / 1e9 / sv['s']:.2f} GB/s, "
+        f"device to host to disk), restored to the card in {restore_s:.1f} s "
+        f"({sv['bytes'] / 1e9 / restore_s:.2f} GB/s); {n} leaves equal bit "
+        "for bit")
+    log("   losses: " + " ".join(f"{losses[k]:.4f}" for k in sorted(losses))
+        + f" (ln V = {math.log(vocab):.4f}: the synthetic tokens are near "
+        "uniform over the vocabulary at this length)")
+    out["default"] = dict(loss0=first, loss_last=last, ms=1e3 * step_s,
+                          tokens_per_s=tokens / step_s, peak_gib=peak / 2**30,
+                          save_gb=sv["bytes"] / 1e9, save_s=sv["s"],
+                          restore_s=restore_s, shards=shards, wall_s=wall)
+    return state
+
+
+def fit_one_batch(state, out):
+    """Phase 16, 1b: the launcher's step on batch 0 profiled once; then
+    ``FIT_STEPS`` steps of ``make_train_step`` at a constant lr of 1e-3 on
+    that one batch, whose loss must fall by ``FIT_DROP`` nats: the full-
+    width gradients and updates learn (the launcher's 20 steps on fresh
+    batches cannot lower a loss that starts at ln V)."""
+    from repro_torch.data.pipeline import make_batch, to_device
+    from repro_torch.launch import train as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step
+
+    _, model, step_fn, pipe_cfg = T.build(T.parse_args([]))
+    batch = to_device(make_batch(pipe_cfg, 0), DEVICE)
+    holder = [state]
+
+    def one_step():
+        holder[0], m = step_fn(holder[0], batch)
+        return m
+
+    wall, busy, n_k, by_name = profile_device(one_step)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"-- profile of one launcher step (B 8, S 128): wall {wall:.1f} ms "
+        f"(profiler on), device busy {busy:.1f} ms (idle share "
+        f"{1 - busy / wall:.3f}), {n_k} kernels; top: "
+        + "; ".join(f"{k[:60]} {t:.2f} ms" for k, t in top))
+    fit = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=0,
+                                             total_steps=1000))
+    state, losses = holder[0], []
+    for _ in range(FIT_STEPS):
+        state, m = fit(state, batch)
+        losses.append(float(m["loss"]))
+    log(f"-- one batch, {FIT_STEPS} steps at lr 1e-3: loss "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not losses[-1] < losses[0] - FIT_DROP:
+        raise AssertionError(f"one batch: loss {losses[0]:.4f} -> "
+                             f"{losses[-1]:.4f}, not falling")
+    out["profile"] = dict(wall_ms=wall, busy_ms=busy, kernels=n_k)
+    out["fit"] = dict(first=losses[0], last=losses[-1])
+    return state
+
+
+def serving_shape_steps(state, out):
+    """Phase 16, 2: full-width steps at the serving shape; then
+    microbatches and compression at the launcher's defaults."""
+    import torch
+    from repro_torch.data.pipeline import make_batch, to_device
+    from repro_torch.launch import train as T
+    from repro_torch.optim.compression import init_error_feedback
+    from repro_torch.train.step import TrainState
+
+    def steps(argv, state):
+        args = T.parse_args(argv + ["--steps", str(SERVING_STEPS)])
+        _, model, step_fn, pipe_cfg = T.build(args)
+        times, metrics = [], []
+        for s in range(SERVING_STEPS):
+            batch = to_device(make_batch(pipe_cfg, s), DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            times.append(time.perf_counter() - t0)
+            metrics.append(m)
+            if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm",
+                                                      "lr")):
+                raise AssertionError(f"{argv}: step {s} {m}")
+        return model, state, times, metrics
+
+    b, s = SERVING_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    model, state, times, metrics = steps(
+        ["--batch", str(b), "--seq-len", str(s)], state)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    flops = 6 * model.n_params() * b * s
+    log(f"-- full width at B {b}, S {s}: {1e3 * step_s:.1f} ms a step "
+        f"(median of steps 1-{SERVING_STEPS - 1}; step 0 "
+        f"{1e3 * times[0]:.1f}), {b * s / step_s:.0f} tokens/s, 6 N tokens "
+        f"/ step time {flops / step_s / 1e12:.1f} TFLOP/s = "
+        f"{flops / step_s / PEAK_BF16_PER_S:.3f} of 989 TFLOP/s bf16; peak "
+        f"device memory {peak / 2**30:.2f} GiB; loss "
+        f"{metrics[0]['loss']:.4f} -> {metrics[-1]['loss']:.4f}")
+    out["serving_shape"] = dict(ms=1e3 * step_s, ms_first=1e3 * times[0],
+                                tokens_per_s=b * s / step_s,
+                                mfu=flops / step_s / PEAK_BF16_PER_S,
+                                peak_gib=peak / 2**30)
+    _, state, times, metrics = steps(["--microbatches", "2"], state)
+    log(f"-- microbatches 2 (B 8, S 128): {1e3 * statistics.median(times):.1f}"
+        f" ms a step, last loss {metrics[-1]['loss']:.4f}, grad_norm "
+        f"{metrics[-1]['grad_norm']:.4f}, lr {metrics[-1]['lr']:.3e}")
+    compressed = TrainState(state.params, state.opt,
+                            init_error_feedback(state.params))
+    _, compressed, times, metrics = steps(["--compress"], compressed)
+    log(f"-- compress (B 8, S 128): {1e3 * statistics.median(times):.1f} ms a "
+        f"step, last loss {metrics[-1]['loss']:.4f}, grad_norm "
+        f"{metrics[-1]['grad_norm']:.4f}, lr {metrics[-1]['lr']:.3e}")
+    return TrainState(compressed.params, compressed.opt, None)
+
+
+def trained_weights_forward(params, records, out):
+    """Phase 16, 3: the trained weights through the flash lane and the
+    einsum lane without grad (phase 8's checks); under grad the flash
+    kernel refuses."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import DecoderLM, get_config
+    from repro_torch.models.layers import attention, rmsnorm
+
+    cfg = get_config("llama3.2-1b")
+    models = {lane: DecoderLM(dataclasses.replace(cfg, use_flash_kernel=lane))
+              for lane in (True, False)}
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab, (2, 2048)).astype(np.int64)).to(DEVICE)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        FA.reset_launches()
+        flash = models[True].forward(params, tokens)
+        torch.cuda.synchronize()
+        launches = FA.LAUNCHES["flash_attention"]
+        if launches != cfg.n_layers:
+            raise AssertionError(f"flash lane launched {launches} kernels, "
+                                 f"want {cfg.n_layers}")
+        if not bool(torch.isfinite(flash).all()):
+            raise AssertionError("non-finite logits")
+        diff, rms, same = compare_logits(
+            flash, models[False].forward(params, tokens))
+    del flash
+    log(f"-- the trained weights, forward B 2, S 2048, bf16, no grad: flash "
+        f"lane {launches} launches; logits against the einsum lane: max "
+        f"|diff| {diff:.3e}, rms diff / rms {rms:.3e}, equal argmax "
+        f"{same:.4f}")
+    if rms > 5 * BF16_TOL or same < 0.9:
+        raise AssertionError("bf16 lanes disagree on the trained weights")
+    p = params["layers"][0]
+    h = rmsnorm(p["ln1"], params["embed"][tokens[:, :64]].to(cfg.dtype))
+    FA.reset_launches()
+    try:
+        attention(p["attn"], cfg.attn_config(), h, use_kernel=True)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"   under grad, attention(use_kernel=True) raises: {e}")
+    else:
+        raise AssertionError("the flash kernel ran under autograd")
+    if FA.LAUNCHES["flash_attention"]:
+        raise AssertionError("the refused call launched the flash kernel")
+    records["flash_attention"]["launches_training"] = launches
+    out["trained_forward"] = dict(rms=rms, equal_argmax=same)
+
+
+def resume_on_card(out):
+    """Phase 16, 4: reduced llama3.2-1b through ``launch.train`` with a
+    failure mid-run against an uninterrupted run; then the example."""
+    import contextlib
+    import io
+    import runpy
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.models.spec import tree_leaves
+
+    finals = {}
+    for name, extra in (("uninterrupted", []),
+                        ("failed", ["--fail-at", str(FT_FAIL_AT)])):
+        ckdir = tempfile.mkdtemp(prefix="repro_ft_")
+        try:
+            final, rec = run_train(
+                ["--reduced", "--steps", str(FT_STEPS), "--ckpt-every",
+                 str(FT_CKPT_EVERY), "--ckpt-dir", ckdir] + extra)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        restarts = rec["text"].count("restart #")
+        if final != FT_STEPS or restarts != (1 if extra else 0):
+            raise AssertionError(f"{name}: final {final}, {restarts} "
+                                 "restarts")
+        finals[name] = rec["saves"][-1]["tree"]
+        resumed = re.search(r"resumed from step (\d+)", rec["text"])
+        if extra:
+            resumed_at = int(resumed.group(1))
+    gap = max(float((a - b).abs().max().detach()) for a, b in zip(
+        tree_leaves(finals["failed"].params),
+        tree_leaves(finals["uninterrupted"].params)))
+    log(f"-- reduced llama3.2-1b, {FT_STEPS} steps, a failure at step "
+        f"{FT_FAIL_AT}, resumed from step {resumed_at} (checkpoint every "
+        f"{FT_CKPT_EVERY}): largest parameter gap to the uninterrupted run "
+        f"{gap:.3e} (limit {FT_GAP_LIMIT:g})")
+    if gap > FT_GAP_LIMIT:
+        raise AssertionError(f"resumed run differs by {gap:.3e}")
+    out["resume_gap"] = gap
+
+    argv = sys.argv
+    sys.argv = ["train_lm", "--smoke"]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            runpy.run_module("repro_torch.examples.train_lm",
+                             run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = argv
+    text = buf.getvalue()
+    log(f"-- python -m repro_torch.examples.train_lm --smoke "
+        f"({time.perf_counter() - t0:.1f} s): {text.splitlines()[-1]}")
+    check_finite_text("train_lm", text)
+    if "trained to step 8" not in text:
+        raise AssertionError("train_lm: no 'trained to step 8' line")
+    torch.cuda.empty_cache()
+
+
+def train_card_against_cpu(out):
+    """Phase 16, 5: one train step of each family's reduced config on the
+    card against the CPU (float32, no TF32)."""
+    import torch
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.models import build_model, get_config, reduced_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    worst = {}
+    for name in TRAIN_FAMILIES:
+        cfg = reduced_config(get_config(name))
+        model = build_model(cfg)
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                  total_steps=8))
+        audio = cfg.family == "audio"
+        batch = make_batch(PipelineConfig(
+            vocab=cfg.vocab, seq_len=64, global_batch=4,
+            frames_dim=cfg.d_model if audio else 0,
+            enc_seq=cfg.enc_seq if audio else 0), 0)
+        metrics = {}
+        for d in ("cpu", DEVICE):
+            state = init_train_state(model, torch.Generator().manual_seed(0),
+                                     device=d)
+            _, m = step(state, {k: torch.from_numpy(v).to(d)
+                                for k, v in batch.items()})
+            metrics[d] = {k: float(v) for k, v in m.items()}
+        rel = max(abs(metrics[DEVICE][k] - metrics["cpu"][k])
+                  / max(abs(metrics["cpu"][k]), 1e-30)
+                  for k in ("loss", "grad_norm"))
+        worst[name] = rel
+        if rel > TRAIN_CARD_TOL or not math.isfinite(metrics["cpu"]["loss"]):
+            raise AssertionError(f"{name}: card against CPU {metrics}")
+    log("-- a train step, card against CPU (reduced configs, float32), "
+        "largest relative gap of loss and grad_norm: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (limit {TRAIN_CARD_TOL:g})")
+    out["card_vs_cpu"] = worst
+
+
+def training_path(records):
+    """Phase 16: llama3.2-1b trained at full width through
+    ``launch.train`` (checkpoint restored bit for bit), steps at the
+    serving shape, microbatches and compression, the trained weights
+    through the flash kernel without grad, a resumed run on the card, the
+    example, and a train step of each family card against CPU."""
+    import torch
+
+    out = {}
+    t0 = time.perf_counter()
+    state = full_width_run(out)
+    state = fit_one_batch(state, out)
+    state = serving_shape_steps(state, out)
+    trained_weights_forward(state.params, records, out)
+    del state
+    torch.cuda.empty_cache()
+    out["full_width_s"] = time.perf_counter() - t0
+    resume_on_card(out)
+    train_card_against_cpu(out)
+    log("phase 16 numbers: " + json.dumps(out, default=float))
+
+
 def main():
     import torch
 
@@ -3629,7 +4121,7 @@ def main():
     with phase("4d. the prior modes at PAPER_FULL, batches of 24 runs"):
         modes_path(records)
 
-    with phase("4e. Fig. 1 and Fig. 2 at quick"):
+    with phase("4e. Fig. 1 at tiny and Fig. 2 at quick"):
         figures_quick()
 
     with phase("5. card against CPU, in lockstep"):
@@ -3673,6 +4165,11 @@ def main():
 
     with phase("15. the other LM families at their published widths"):
         families_path(records)
+
+    del cfg, model, params
+    torch.cuda.empty_cache()
+    with phase("16. training"):
+        training_path(records)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

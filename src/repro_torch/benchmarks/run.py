@@ -24,7 +24,8 @@ set, else from the JAX package's ``BENCH_<scale>.json``.
 
 PyTorch counterpart of the JAX package's ``benchmarks/run.py``, on
 ``--device`` (the card unless the caller passes ``cpu``). Its ``roofline``
-module reads the TPU dry run's HLO and has no counterpart yet.
+module reads the TPU dry run's HLO, which needs the mesh (ROADMAP.md,
+Queue A, item 5), and has no counterpart yet.
 """
 from __future__ import annotations
 
@@ -56,9 +57,10 @@ MODULES = {
 
 #: the JAX package's modules that the port has no counterpart of yet
 NOT_PORTED = {
-    "roofline": "reads the TPU dry run's HLO at v5e peaks (the card's "
-                "bounds are computed in chip_smoke.py); ROADMAP.md, Queue "
-                "A, item 10",
+    "roofline": "reads the artifacts of the TPU dry run, which lowers the "
+                "train step onto a 512-device production mesh, at v5e "
+                "peaks (the card's bounds are computed in chip_smoke.py); "
+                "ROADMAP.md, Queue A, item 5 (the mesh)",
 }
 
 

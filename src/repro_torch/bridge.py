@@ -27,14 +27,18 @@ from .core.policies import PolicyParams
 from .core.processes import (DeploymentParams, PopulationPriors,
                              PseudoObservations, StepEvents)
 from .models.layers import KVCache
+from .models.spec import tree_leaves
 from .models.ssm import SSMCache
 from .models.xlstm import MLSTMCache, SLSTMState
 from .obs.counters import TelemetryState
+from .optim.adamw import OptState
+from .optim.compression import ErrorFeedback
 from .sim.core import (ArrivalStream, CoreState, FleetConfig, SimConfig,
                        SimState)
 from .sim.routing import RouteContext
 from .sim.simulator import FleetMetrics, RunMetrics
 from .traces.schema import ScaleoutEvents, WorkloadTrace
+from .train.step import TrainState
 
 PORTED = {cls.__name__: cls for cls in (
     GammaBelief, DeploymentParams, ArrivalStream, SimState, CoreState,
@@ -152,3 +156,88 @@ def _index_tree(tree, i):
     if isinstance(tree, dict):
         return {k: _index_tree(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+# ---------------------------------------------------------------------------
+# Train states. The port keeps one tensor a parameter in
+# ``models.spec.tree_leaves`` order, with one module a layer; the JAX package
+# stacks a homogeneous decoder stack's leaves on a leading [L, ...] axis.
+# ---------------------------------------------------------------------------
+
+
+def _stacked(model) -> bool:
+    """Whether the JAX package stacks this model's ``layers``."""
+    layer_types = getattr(model, "layer_types", None)
+    return (layer_types is not None and len(set(layer_types)) == 1
+            and model.cfg.scan_layers)
+
+
+def _port_leaves(model, tree_np) -> list:
+    """A JAX-layout parameter-shaped tree (numpy leaves) as arrays in the
+    port's leaf order."""
+    if _stacked(model):
+        n = len(model.layer_types)
+        tree_np = {**tree_np,
+                   "layers": [_index_tree(tree_np["layers"], i)
+                              for i in range(n)]}
+    return [np.asarray(a) for a in tree_leaves(tree_np)]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def lm_leaves_to_numpy(model, leaves) -> dict:
+    """Tensors in the port's leaf order of ``model``'s parameters (the
+    parameters themselves, a moment, gradients) as the JAX package's
+    parameter tree of numpy arrays: homogeneous decoder stacks on a leading
+    [L, ...] axis."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(x) for x in node]
+        return to_numpy(next(it)).copy()
+
+    tree = build(model.param_descriptors())
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the model has parameters")
+    if _stacked(model):
+        tree["layers"] = _stack(tree["layers"])
+    return tree
+
+
+def load_train_state(model, state_np, device="cpu") -> TrainState:
+    """The port's ``TrainState`` of the JAX package's (its NamedTuples with
+    numpy leaves): parameters through ``load_lm_params`` (trainable), then
+    AdamW's m, v and step and the error feedback, each leaf mapped as the
+    parameters are."""
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    load_lm_params(params, state_np.params)
+    params.requires_grad_(True)
+
+    def leaves(tree):
+        return [_tensor(a).to(device) for a in _port_leaves(model, tree)]
+
+    opt = OptState(m=leaves(state_np.opt.m), v=leaves(state_np.opt.v),
+                   step=_tensor(state_np.opt.step).to(device))
+    ef = (None if state_np.ef is None
+          else ErrorFeedback(residual=leaves(state_np.ef.residual)))
+    return TrainState(params=params, opt=opt, ef=ef)
+
+
+def train_state_to_numpy(model, state: TrainState) -> TrainState:
+    """A port ``TrainState`` in the JAX package's layout: the same
+    NamedTuples holding its trees of numpy arrays (``jax.tree.leaves`` lists
+    both packages' states in one order)."""
+    tree = lambda xs: lm_leaves_to_numpy(model, xs)
+    return TrainState(
+        params=tree(tree_leaves(state.params)),
+        opt=OptState(m=tree(state.opt.m), v=tree(state.opt.v),
+                     step=to_numpy(state.opt.step)),
+        ef=None if state.ef is None else ErrorFeedback(
+            residual=tree(state.ef.residual)))

@@ -1,8 +1,8 @@
 """The JAX package's example scripts (``examples/``) on the port, one
 module each, run as ``python -m repro_torch.examples.<name>``:
 ``quickstart``, ``admission_serving``, ``calibrate_policy``,
-``telemetry_dashboard``, ``trace_scenarios``, ``drift_recalibration`` and
-``serve_lm``.
+``telemetry_dashboard``, ``trace_scenarios``, ``drift_recalibration``,
+``serve_lm`` and ``train_lm``.
 
 Each runs on ``--device`` (the card unless the caller passes ``cpu``);
 ``--smoke`` selects the JAX script's ``REPRO_SMOKE=1`` sizes.

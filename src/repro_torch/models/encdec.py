@@ -17,7 +17,7 @@ from ..device import resolve_device
 from .layers import (AttnConfig, KVCache, _qkv, _sdpa, attention,
                      attention_decode, attention_params, init_kv_cache, mlp,
                      mlp_params, rmsnorm, rmsnorm_params)
-from .lm import _no_mesh
+from .lm import _no_mesh, token_nll
 from .spec import P, count_params, init_params
 
 F32 = torch.float32
@@ -148,6 +148,13 @@ class EncDecLM:
         for p in params["decoder"]:
             x = self._dec_block(p, x, enc_out, pos)
         return self._logits(params, rmsnorm(params["final_norm"], x))
+
+    def loss(self, params, batch: dict, mesh=None):
+        """Next-token cross entropy over {"tokens", "labels", "frames"};
+        (loss, {"nll", "aux"}) with aux 0, as in the reference."""
+        nll = token_nll(self.forward(params, batch, mesh), batch["labels"])
+        return nll, {"nll": nll,
+                     "aux": torch.zeros((), dtype=F32, device=nll.device)}
 
     # -- serving --------------------------------------------------------------
 

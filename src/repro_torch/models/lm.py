@@ -12,8 +12,8 @@ parameters (a ``Params`` module tree) and every method takes them first.
 Every stack is a list of per-layer ``Params`` here, and the reference's
 ``lax.scan`` over a homogeneous stack a Python loop; the reference stacks a
 homogeneous stack's parameters and caches on a leading layers axis and keeps
-a heterogeneous one (xLSTM) as a list. Training (``loss``, the MoE aux
-coefficient) waits for ROADMAP Queue A item 10.
+a heterogeneous one (xLSTM) as a list. ``loss`` is the training objective,
+with each block recomputed in the backward pass under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import moe as moe_lib
@@ -57,7 +59,7 @@ class ModelConfig:
     enc_layers: int = 0         # audio (whisper) encoder depth
     enc_seq: int = 1500         # audio frames after the (stubbed) frontend
     scan_layers: bool = True
-    remat: bool = True          # training only; inference ignores it
+    remat: bool = True          # recompute each block in the backward pass
     attn_chunk: int = 0         # chunked attention block (0 = off)
     moe_local_dispatch: bool = False
     dtype: Any = torch.bfloat16  # activation/compute dtype
@@ -99,8 +101,8 @@ class ModelConfig:
 
 class DecoderLM:
     """Decoder LM over a ``Params`` tree; every method is a plain function
-    of its arguments. ``cfg.remat`` (activation checkpointing for training)
-    has no meaning in inference and is ignored."""
+    of its arguments. ``cfg.remat`` (activation checkpointing) acts in
+    ``loss`` only, where a backward pass follows."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -212,13 +214,46 @@ class DecoderLM:
                 else params["lm_head"])
         return torch.einsum("bsd,dv->bsv", hidden, head.to(hidden.dtype))
 
+    def _backbone(self, params, x, remat: bool = False):
+        """Embeddings -> final norm: (hidden, the blocks' summed MoE aux
+        loss). With ``remat`` each block keeps only its input for the
+        backward pass and runs again there, as the JAX package's
+        ``jax.checkpoint(policy=nothing_saveable)`` does."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for ltype, p in zip(self.layer_types, params["layers"]):
+            if remat:
+                x, a = checkpoint(self._block_apply, ltype, p, x,
+                                  use_reentrant=False)
+            else:
+                x, a = self._block_apply(ltype, p, x)
+            aux = aux + a
+        return rmsnorm(params["final_norm"], x), aux
+
     def forward(self, params, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
         """tokens: [B, S] -> logits [B, S, V] in ``cfg.dtype``."""
         _no_mesh(mesh)
-        x = self._embed(params, tokens)
-        for ltype, p in zip(self.layer_types, params["layers"]):
-            x, _ = self._block_apply(ltype, p, x)
-        return self._logits(params, rmsnorm(params["final_norm"], x))
+        hidden, _ = self._backbone(params, self._embed(params, tokens))
+        return self._logits(params, hidden)
+
+    def loss(self, params, batch: dict, mesh=None) -> tuple:
+        """Next-token cross entropy (+ the MoE aux loss at ``moe_aux_coef /
+        n_layers``). batch: tokens/labels [B, S]. Returns (loss, {"nll",
+        "aux"}), 0-d float32 tensors.
+
+        The embedding table is cast to ``cfg.dtype`` whole and then
+        gathered, in the JAX package's order: the values equal
+        ``_embed``'s, and in bf16 the table's gradient accumulates
+        repeated tokens in bf16 as the reference's does."""
+        _no_mesh(mesh)
+        cfg = self.cfg
+        x = params["embed"].to(cfg.dtype)[batch["tokens"].long()]
+        hidden, aux = self._backbone(
+            params, x, remat=cfg.remat and torch.is_grad_enabled())
+        nll = token_nll(self._logits(params, hidden), batch["labels"])
+        loss = nll
+        if cfg.family == "moe":
+            loss = loss + cfg.moe_aux_coef * aux / cfg.n_layers
+        return loss, {"nll": nll, "aux": aux}
 
     # -- serving ------------------------------------------------------------
 
@@ -350,6 +385,13 @@ class DecoderLM:
             caches.append(cache)
         hidden = rmsnorm(params["final_norm"], x[:, -1:])
         return self._logits(params, hidden)[:, 0].to(torch.float32), caches
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token negative log-likelihood: logits [B, S, V] taken to
+    float32, ``log_softmax``, the label's entry."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None]).mean()
 
 
 def _no_mesh(mesh) -> None:

@@ -4,16 +4,19 @@ Models declare parameters as ``P(shape, logical_axes)`` descriptors in a
 nested dict (lists for per-layer stacks), as the JAX package does.
 ``init_params`` draws them from a ``torch.Generator`` into a ``Params``
 module tree: the fan-in scaled normal, zeros and ones of the JAX package's
-``init_params``. The logical axes are kept for parity with the JAX
-descriptors; the port has no mesh yet, so nothing reads them (the JAX
-package's ``logical_constraint`` is the identity without a mesh, and the
-port calls nothing in its place).
+``init_params``. ``tree_leaves`` lists a tree's leaves in the order
+``jax.tree.flatten`` lists the JAX package's: dict keys sorted, lists in
+order; the optimizer and the checkpointer keep their state in that order.
+The logical axes are kept for parity with the JAX descriptors; the port has
+no mesh yet, so nothing reads them (the JAX package's ``logical_constraint``
+is the identity without a mesh, and the port calls nothing in its place).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -29,13 +32,18 @@ class P(NamedTuple):
 
 class Params(nn.Module):
     """A nested parameter dict as a module: ``p["wq"]``, ``p["attn"]["wq"]``,
-    ``"w_gate" in p``. Leaves are frozen ``nn.Parameter``s (the port serves;
-    it does not train), children are ``Params`` or ``nn.ModuleList``s."""
+    ``"w_gate" in p``. Leaves are ``nn.Parameter``s, frozen unless given as
+    ``nn.Parameter``s that require grad: serving keeps them frozen, and
+    ``train.step.init_train_state`` makes them trainable
+    (``params.requires_grad_(True)``). Children are ``Params`` or
+    ``nn.ModuleList``s."""
 
     def __init__(self, items: dict):
         super().__init__()
         for name, value in items.items():
-            if isinstance(value, torch.Tensor):
+            if isinstance(value, nn.Parameter):
+                self.register_parameter(name, value)
+            elif isinstance(value, torch.Tensor):
                 self.register_parameter(
                     name, nn.Parameter(value, requires_grad=False))
             else:
@@ -86,6 +94,25 @@ def init_params(gen: torch.Generator, tree: Any, dtype=torch.float32,
         raise TypeError(f"not a descriptor tree node: {type(node).__name__}")
 
     return build(tree)
+
+
+LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, int, float, bool)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a ``Params`` tree, or of nested dicts, lists, tuples
+    and NamedTuples, in ``jax.tree.flatten``'s order: dict and ``Params``
+    keys sorted, sequences in order, ``None`` no leaf; a tensor, a numpy
+    array or a Python number is a leaf."""
+    if isinstance(tree, LEAF_TYPES):
+        return [tree]
+    if isinstance(tree, (dict, Params)):
+        return [x for k in sorted(tree.keys()) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return [x for t in tree for x in tree_leaves(t)]
+    if tree is None:
+        return []
+    raise TypeError(f"not a tree node: {type(tree).__name__}")
 
 
 def _leaves(tree: Any):

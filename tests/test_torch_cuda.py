@@ -26,8 +26,9 @@ simulator run on the card must repeat bit for bit and conserve deployments,
 the online engine on the card must equal that run bit for bit (and its
 pump thread launch on the engine's stream), and a small LM on the card
 must match the same LM on the CPU, as must each other architecture's
-reduced config (flash lane forward, decode-kernel decode steps). Both
-attention kernels also run at the families' G = 5, 6, 12 and 48.
+reduced config (flash lane forward, decode-kernel decode steps), and one
+train step of each family's reduced config. Both attention kernels also
+run at the families' G = 5, 6, 12 and 48.
 """
 import numpy as np
 import pytest
@@ -706,6 +707,42 @@ def test_each_family_on_card_matches_cpu(card, name):
     decoders = (cfg.n_layers if cfg.family == "audio"
                 else sum(t in ("attn", "hybrid") for t in model.layer_types))
     assert DG.LAUNCHES["decode_gqa"] == before + 20 * decoders
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "chameleon-34b",
+                                  "dbrx-132b", "hymba-1.5b", "xlstm-125m",
+                                  "whisper-small"])
+def test_train_step_on_card_matches_cpu(card, name):
+    """One train step (loss, gradients, AdamW) of each family's reduced
+    config, float32, no TF32, on the card against the same state and batch
+    on the CPU: loss and grad_norm at 1e-4, and the flash kernel never
+    launched (training takes the einsum lanes)."""
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(get_config(name))
+    model = build_model(cfg)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=8))
+    audio = cfg.family == "audio"
+    batch = make_batch(PipelineConfig(
+        vocab=cfg.vocab, seq_len=32, global_batch=4,
+        frames_dim=cfg.d_model if audio else 0,
+        enc_seq=cfg.enc_seq if audio else 0), 0)
+    before = FA.LAUNCHES["flash_attention"]
+    metrics = {}
+    for d in ("cpu", card):
+        state = init_train_state(model, torch.Generator().manual_seed(0),
+                                 device=d)
+        _, metrics[d] = step(state, {k: torch.from_numpy(v).to(d)
+                                     for k, v in batch.items()})
+    assert FA.LAUNCHES["flash_attention"] == before
+    for key in ("loss", "grad_norm"):
+        assert np.isfinite(float(metrics["cpu"][key]))
+        torch.testing.assert_close(metrics[card][key].cpu(),
+                                   metrics["cpu"][key], rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

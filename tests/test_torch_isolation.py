@@ -59,10 +59,14 @@ def test_scan_sees_the_whole_port():
             port + "benchmarks/serve_bench.py",
             port + "benchmarks/tuning_bench.py",
             port + "benchmarks/kernels_bench.py",
-            port + "examples/__init__.py"} <= names
+            port + "examples/__init__.py", port + "optim/adamw.py",
+            port + "optim/compression.py", port + "train/step.py",
+            port + "data/pipeline.py", port + "checkpoint/checkpointer.py",
+            port + "runtime/fault_tolerance.py",
+            port + "launch/train.py"} <= names
     for name in ("admission_serving", "quickstart", "calibrate_policy",
                  "telemetry_dashboard", "trace_scenarios",
-                 "drift_recalibration"):
+                 "drift_recalibration", "serve_lm", "train_lm"):
         assert f"{port}examples/{name}.py" in names
     for kernel in ("moment_curves", "flash_attention", "decode_gqa"):
         for name in ("kernel.py", "ops.py", "ref.py"):
