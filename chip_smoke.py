@@ -35,12 +35,12 @@ time:
                (rho 0.112) and ZEROTH (threshold 8,864), the paper's tuned
                values; the launch counters show the SECOND run went through
                both belief-form kernels (365 aggregate and 4,380 candidate
-               launches) and no packed one. Then SECOND for its first 720
+               launches) and no packed one. Then SECOND for its first 480
                steps (``SHORT_STEPS``), the reference of the runs that
-               phases 4b, 11, 12 and 13 cut to that depth since PR 23.
-  4b. batch  — the same SECOND run (720 steps) as one batch of 24 seeds,
-               2018 among them: 720 candidate launches (each the batch's
-               24 x 8 rows) and 60 aggregate launches for the whole batch
+               phases 4b, 11 and 12 cut to that depth.
+  4b. batch  — the same SECOND run (480 steps) as one batch of 24 seeds,
+               2018 among them: 480 candidate launches (each the batch's
+               24 x 8 rows) and 40 aggregate launches for the whole batch
                (each over all 24 runs); run 2018 equal to phase 4's bit
                for bit; runs x steps/s beside phase 4's steps/s.
   4c. Table 2 — ``repro_torch.benchmarks.common.tune_and_eval`` at the
@@ -49,8 +49,8 @@ time:
                simulations and seconds, beside the JAX package's
                ``tuning/calibrate/*`` rows of BENCH_quick.json; every chosen
                theta feasible under the port's own measurement.
-  4d. modes  — SECOND with Def. 4's heuristic at PAPER_FULL cut to 180
-               days (720 of its 4,380 steps, to make room for phase 12)
+  4d. modes  — SECOND with Def. 4's heuristic at PAPER_FULL cut to 120
+               days (480 of its 4,380 steps)
                in the GLOBAL, §6 PSEUDO (50 observations) and §7 unlabeled
                (5 of each type) modes, each a batch of 24 runs: one
                row-kernel launch a step (both mixture components' rows in
@@ -112,12 +112,13 @@ time:
                for all 4,380 ticks: accept masks and metrics equal phase 4's
                bit for bit, 365 aggregate and 4,380 row launches; ticks/s,
                decisions/s, a flush's host ms (p50/p99) and device ms
-               between CUDA events. Again with the telemetry rider for 720
-               ticks (phase 4's 720-step run's bits; admits + rejects =
+               between CUDA events. Again with the telemetry rider for 480
+               ticks (phase 4's 480-step run's bits; admits + rejects =
                decisions). The naive lane for 200
                ticks (one aggregate launch a request). The deadline
                scheduler (SLO 50 ms) fed by a ticker thread and 4 submitter
-               threads for 500 ticks: every future resolves; misses and
+               threads for the stream's 480 ticks: every future
+               resolves; misses and
                latency p50/p99 against the SLO; one ``GET /metrics`` from
                an ephemeral port, parsed, carrying the rider's counters.
                Last, a profile of 48 ticks (kernels a tick, idle share).
@@ -125,16 +126,15 @@ time:
                fleet benchmark splits it: 8,000 / 6,000 / 4,000 / 2,000
                cores, 4,096 slots each, SECOND rho 0.112 through
                ``fleet_policy``. A fleet of one (all 20,000 cores, 8,192
-               slots) takes phase 4's decisions bit for bit over 720 steps.
-               Each router (for 720 steps; least utilized and power of two
-               ran all 4,380 before PR 23) holds tests/test_fleet.py's
+               slots) takes phase 4's decisions bit for bit over 480 steps.
+               Each router (for 480 steps) holds tests/test_fleet.py's
                invariants (no cluster over its capacity, alive = accepted
                - overflow - departed, fleet fields the clusters' sums, the
                cascade admits every routed arrival and counts the rest as
                rejected by all), with one aggregate launch a refresh for
                the four clusters; steps/s, kernels a step and idle share
                (profiles of 12 and 24 steps, differenced). A batch of 24
-               fleet runs for 600 steps (96 tables an aggregate launch):
+               fleet runs for 360 steps (96 tables an aggregate launch):
                run 2018 equal to the run alone bit for bit. The aggregate
                at R = 4 and 96 tables of 4,096 slots against its plain
                version and R one-run launches (times, bound);
@@ -142,7 +142,7 @@ time:
                against its plain version, each window of <= 256 points
                equal to a launch over it; a fleet refresh one CUDA kernel.
                The fleet engine ticked by ``make_fleet_run``'s generators
-               for 600 ticks: its decisions and ``FleetMetrics`` equal
+               for 360 ticks: its decisions and ``FleetMetrics`` equal
                ``make_fleet_run``'s bit for bit; ticks/s, decisions/s.
 
  13. traces  — the trace-driven path: every scenario synthesized at
@@ -151,21 +151,21 @@ time:
                observed fits within tests/test_traces.py's tolerances; the
                Azure sample ingested, fitted (observed) and replayed in a
                short run; the baseline replayed through ``make_run`` at
-               PAPER_FULL with 16 arrivals a step for its first 720 steps
-               (720 row and 60 aggregate launches; all 4,380 before PR 23;
+               PAPER_FULL with 16 arrivals a step for its first 480 steps
+               (480 row and 40 aggregate launches;
                its GLOBAL stream built on the card
                equal to the CPU's bit for bit); ``replay_stream_batch`` of
-               24 traces through ``run_keyed_batch`` for their first 720
+               24 traces through ``run_keyed_batch`` for their first 480
                steps; ``make_importance_plan``
                at PAPER_FULL (512 probes in batches of 64, quotas 8/8/8;
                probe seconds, peak device memory), ``simulate_plan`` and
                ``estimate_from_plan`` (a selected seed's probe stream equal
                to its run's bit for bit); ``make_trace_ensemble_plan`` over
-               32 replays of 720 steps and ``simulate_trace_plan``;
+               32 replays of 480 steps and ``simulate_trace_plan``;
                ``calibrate_scenario``
                (flash crowd, SECOND at rho 0.112) and ``run_drift_protocol``
                (drift step, ``drift_bench``'s ``quick``) at ``quick``; the
-               fleet replay row at the fleet split for 720 steps; the engine
+               fleet replay row at the fleet split for 480 steps; the engine
                with telemetry and a ``DriftDetector`` for 360 ticks, scraped
                every 36 (the first scrape, from an empty cluster, warm-up),
                its null calibrated on 3 stationary replays of the same
@@ -235,6 +235,21 @@ time:
                repro_torch.examples.train_lm --smoke``, and one train step
                of a reduced config of each family (dense, moe, hybrid, ssm,
                audio) on the card against the CPU.
+ 17. mesh    — the admission system's mesh with
+               ``REPRO_TORCH_DEVICE_COUNT=4`` (4 logical devices on the
+               card, set and restored in the phase): the online engine at
+               PAPER_FULL's 8,192 slots (SECOND rho 0.112, the fused lane
+               the sharded refresh mirrors, micro-batch 8, the rider on,
+               360 ticks) with ``shards=4`` against ``shards=1``: decisions,
+               every refreshed aggregate, metrics and rider with gap 0;
+               ticks/s, decisions/s, kernels a tick and a flush's host ms
+               p50/p99 of both. Phase 4b's seeds, 24 runs and then a ragged
+               22, 120 steps, split over the 4 against one device; ``calibrate`` at ``smoke`` over 4 devices
+               against 1; a 64-probe ``make_importance_plan`` at PAPER_FULL
+               over 4 against 1 (equal BM); whether cuBLAS gives a row of
+               the fused lane's old interpolation matmul the same bits at
+               every row count. Phase 14's ``serve_bench`` carries the
+               ``sharded`` row (8 logical devices).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -302,12 +317,21 @@ F32_LOGIT_RMS = 1e-4         # float32 logits of the two attention lanes
 LOGIT_TIE = 1e-4             # float32 logits closer than this are a tie
 DEVICE = "cuda"
 ENGINE_SLO_MS = 50.0         # phase 11's deadline scheduler: decision SLO
-MODES_STEPS = 720            # phase 4d's depth: 180 days of the 3 years
-# the depth of phase 4b's batch, phase 11's engine with telemetry, phase
-# 12's fleet of one and routers and phase 13's replayed run (PR 23 cut them
-# from the 4,380 steps of PAPER_FULL to make room for phase 16); phase 4
-# runs SECOND at this depth too, as their reference
-SHORT_STEPS = 720
+MODES_STEPS = 480            # phase 4d's depth: 120 days of the 3 years
+# the depth of phase 4b's batch, phase 11's engine with telemetry and phase
+# 12's fleet of one and routers, cut from the 4,380 steps of PAPER_FULL to
+# keep the whole script inside its time limit on a slow host; phase 4 runs
+# SECOND at this depth too, as their reference
+SHORT_STEPS = 480
+# phase 17: the mesh on one card, as logical devices
+MESH_SHARDS = 4
+# the engine's ticks and the split batches' steps (the phase took 102 s
+# at 720 ticks and steps)
+MESH_TICKS = 360
+MESH_BATCH_STEPS = 120
+MESH_BATCHES = (24, 22)      # runs of the split batches (22: ragged)
+MESH_PROBES = 64
+MESH_PROFILE = 24            # ticks of each engine's profile
 
 
 def log(msg):
@@ -2083,7 +2107,7 @@ def engine_path(records, single):
         f"; launches {launches}")
 
     # 4. the deadline scheduler: a ticker and 4 submitters, then /metrics
-    n_ticks, n_sub = 500, 4
+    n_ticks, n_sub = tel_cfg.n_steps, 4     # the stream's every window
     gen = torch.Generator(device=DEVICE).manual_seed(2018)
     stream = draw_arrival_stream(gen, tel_cfg)
     host = to_numpy(stream)
@@ -2190,7 +2214,7 @@ FLEET_FRACS = (0.4, 0.3, 0.2, 0.1)
 # since PR 19, least utilized and power of two since PR 23)
 FLEET_ROUTER_STEPS = dict.fromkeys(("least_utilized", "power_of_two",
                                     "random", "cascade"), SHORT_STEPS)
-FLEET_BATCH_STEPS = 600      # phase 12's batch of 24 and its engine
+FLEET_BATCH_STEPS = 360      # phase 12's batch of 24 and its engine
 FLEET_PROFILE_STEPS = 12     # profiles of 12 and 24 steps, differenced
 
 
@@ -2592,8 +2616,9 @@ def fleet_path(records, single):
 REPLAY_MAX_ARRIVALS = 16     # the JAX sweep's replay cap (scenarios.py)
 TRACE_BATCH = 24             # phase 13's replayed batch
 TRACE_ENSEMBLE = 32          # phase 13's trace-level plan
-TRACE_DEPTH_STEPS = 720      # depth of the replayed batch and the trace plan
-TRACE_FLEET_STEPS = 720      # phase 13's fleet replay row
+TRACE_DEPTH_STEPS = 480      # depth of the replayed run and batch and the
+                             # trace plan
+TRACE_FLEET_STEPS = 480      # phase 13's fleet replay row
 TRACE_ENGINE_TICKS = 360     # phase 13's engine with a drift detector
 TRACE_SCRAPE_TICKS = 36      # ... scraped (a detector window) this often
 TRACE_NULL_REPS = 3          # stationary engine replays behind its null
@@ -3117,6 +3142,8 @@ def drivers_path(records):
                 "serve", lambda: serve_bench.run("smoke", 0, DEVICE), mc))
         finally:
             del os.environ["REPRO_BENCH_JSON"]
+        if not any(r.startswith("serve/smoke/sharded,") for r in rows):
+            raise AssertionError("serve_bench: no serve/smoke/sharded row")
         written = bench_run.write_artifact(
             bench, "smoke", 0, seconds["serve"],
             bench_run.records_of(rows, 0, card))
@@ -4081,6 +4108,260 @@ def training_path(records):
     log("phase 16 numbers: " + json.dumps(out, default=float))
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the admission system's mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_engine(cfg, grid, policy, shards):
+    """The online engine ticked with a generator seeded 2018 for
+    ``MESH_TICKS`` ticks, one 8-lane ``decide_slice`` a tick, its slot table
+    over ``shards`` devices. Returns its accept masks, every refreshed
+    aggregate ([refreshes, 2, N] on the host), metrics, rider, decisions,
+    the timed ticks' wall, each timed flush's host seconds, and
+    ``profile_device``'s numbers of the last ``MESH_PROFILE`` ticks (left
+    out of the times)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SECOND
+    from repro_torch.serve import OnlineAdmissionEngine
+    from repro_torch.sim import draw_arrival_stream
+    from repro_torch.sim.simulator import _steps
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2018)
+    stream = draw_arrival_stream(gen, cfg)
+    n_arr = stream.n_arrivals.cpu().numpy()
+    lanes = np.arange(cfg.max_arrivals)
+    steps = _steps(stream)
+    eng = OnlineAdmissionEngine(cfg, grid, SECOND, policy, micro_batch=8,
+                                shards=shards, device=DEVICE)
+    refreshed, refresh = [], eng.core.refresh_aggregates
+
+    def recording(cs):
+        cs = refresh(cs)
+        refreshed.append(torch.stack([cs.agg_el, cs.agg_vl]))
+        return cs
+
+    eng.core = eng.core._replace(refresh_aggregates=recording)
+    accepts, host_s = [], []
+
+    def one(t):
+        eng.tick(gen=gen)
+        h0 = time.perf_counter()
+        accepts.append(eng.decide_slice(steps[t], lanes < n_arr[t]))
+        return time.perf_counter() - h0
+
+    timed = MESH_TICKS - MESH_PROFILE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(timed):
+        host_s.append(one(t))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decided = eng.decisions
+    profiled = profile_device(lambda: [one(t) for t in range(timed,
+                                                             MESH_TICKS)])
+    return dict(accept=np.stack(accepts), metrics=eng.metrics(),
+                refreshed=torch.stack(refreshed).cpu(), tel=eng._cs.tel,
+                decided=decided, ticks=timed, wall=wall, host_s=host_s,
+                profiled=profiled, n_shards=eng.n_shards)
+
+
+def mesh_matmul_rows():
+    """Whether cuBLAS gives a row of ``[M, 25] @ [25, 48]`` (the fused
+    lane's former D-term interpolation, ND = 24, N = 48) the same
+    bits at every row count M: the number of M-row chunks of an 8,192-row
+    product that differ from its rows, for M = 1, 8, 512, 2,048."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.rand(8192, 25, generator=gen, device=DEVICE)
+    w = torch.rand(25, 48, generator=gen, device=DEVICE)
+    full = x @ w
+    return {m: sum(not torch.equal(x[lo:lo + m] @ w, full[lo:lo + m])
+                   for lo in range(0, 8192, m))
+            for m in (1, 8, 512, 2048)}
+
+
+def mesh_path(records):
+    """Phase 17: the mesh with 4 logical devices on the card."""
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import common
+    from repro_torch.configs import PAPER_FULL, PAPER_TABLE2
+    from repro_torch.core import SECOND, make_policy
+    from repro_torch.device import DEVICE_COUNT_VAR, canonical_device
+    from repro_torch.kernels.moment_curves import kernel as K
+    from repro_torch.sim import (make_importance_plan, make_run,
+                                 run_keyed_batch, split_seeds)
+    from repro_torch.tuning import calibrate
+
+    old = os.environ.get(DEVICE_COUNT_VAR)
+    os.environ[DEVICE_COUNT_VAR] = str(MESH_SHARDS)
+    try:
+        card = canonical_device(DEVICE)
+        logical = [card] * MESH_SHARDS
+        grid = geometric_grid_full()
+        policy = make_policy(SECOND, rho=PAPER_TABLE2["second_rho"],
+                             capacity=PAPER_FULL.capacity)
+        out, launches, seconds = {}, {}, {}
+
+        def counted(tag, fn, want):
+            """``fn()`` with the launch counts set to 0 just before and
+            read just after; each kernel of ``want`` must have launched."""
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            seconds[tag] = time.perf_counter() - t0
+            got = launches[tag] = dict(K.LAUNCHES)
+            if not all(got[name] > 0 for name in want):
+                raise AssertionError(f"mesh {tag}: launches {got}, each of "
+                                     f"{want} must launch")
+            return result
+
+        # 1. the engine, its 8,192 slots over 4 logical devices against 1
+        cfg = short_config()._replace(
+            horizon_hours=MESH_TICKS * PAPER_FULL.dt, telemetry=True,
+            agg_backend="fused")
+        one = counted("engine_one", lambda: mesh_engine(cfg, grid, policy,
+                                                        None),
+                      ("moment_curves_belief",))
+        four = counted("engine", lambda: mesh_engine(cfg, grid, policy,
+                                                     MESH_SHARDS),
+                       ("moment_curves_belief",))
+        if not np.array_equal(one["accept"], four["accept"]):
+            bad = np.argwhere(one["accept"] != four["accept"])
+            raise AssertionError(f"sharded engine: decisions differ at "
+                                 f"(tick, lane) {bad[:5].tolist()}")
+        agg_gap = float((one["refreshed"] - four["refreshed"]).abs().max())
+        if (one["refreshed"].shape != four["refreshed"].shape
+                or agg_gap != 0.0):
+            raise AssertionError(f"sharded engine: refreshed aggregates "
+                                 f"{tuple(four['refreshed'].shape)}, gap "
+                                 f"{agg_gap}")
+        for name in one["metrics"]._fields:
+            if not torch.equal(getattr(one["metrics"], name),
+                               getattr(four["metrics"], name)):
+                raise AssertionError(f"sharded engine: {name} differs")
+        for a, b in zip(one["tel"], four["tel"]):
+            if not torch.equal(a, b):
+                raise AssertionError("sharded engine: the rider differs")
+        if four["n_shards"] != MESH_SHARDS:
+            raise AssertionError(f"sharded engine: {four['n_shards']} shards")
+        for tag, r in (("shards=1", one), ("shards=4", four)):
+            p_wall, p_busy, p_kernels, _ = r["profiled"]
+            out[tag] = dict(
+                ticks_per_s=r["ticks"] / r["wall"],
+                decisions_per_s=r["decided"] / r["wall"],
+                flush_host_ms_p50=_percentile_ms(r["host_s"], 0.5),
+                flush_host_ms_p99=_percentile_ms(r["host_s"], 0.99),
+                kernels_a_tick=p_kernels / MESH_PROFILE,
+                idle_share=1 - p_busy / p_wall)
+            log(f"engine at PAPER_FULL ({cfg.max_slots} slots, fused lane, "
+                f"micro-batch 8, rider on), {tag}: {r['ticks']} timed ticks "
+                f"{out[tag]['ticks_per_s']:.1f} ticks/s, "
+                f"{out[tag]['decisions_per_s']:.1f} decisions/s; a flush's "
+                f"host ms p50 {out[tag]['flush_host_ms_p50']:.4f}, p99 "
+                f"{out[tag]['flush_host_ms_p99']:.4f}; profile of the last "
+                f"{MESH_PROFILE} ticks: {out[tag]['kernels_a_tick']:.2f} CUDA "
+                f"kernels a tick, idle share {out[tag]['idle_share']:.3f}")
+        log(f"sharded engine ({MESH_SHARDS} x {cfg.max_slots // MESH_SHARDS} "
+            f"slots on logical devices of one card) against shards=1: "
+            f"decisions, {len(four['refreshed'])} refreshed aggregates (gap "
+            f"{agg_gap}), metrics and rider equal bit for bit; launches "
+            f"{launches['engine']}; ticks/s sharded over unsharded "
+            f"{out['shards=4']['ticks_per_s']
+                / out['shards=1']['ticks_per_s']:.3f}")
+
+        # 2. phase 4b's seeds split over the 4: 24 runs, then a ragged 22
+        b_cfg = short_config()._replace(
+            horizon_hours=MESH_BATCH_STEPS * PAPER_FULL.dt)
+        run = make_run(b_cfg, grid, SECOND, device=DEVICE)
+        seeds = split_seeds(2018, 23)
+        seeds.insert(5, 2018)
+        for n_runs in MESH_BATCHES:
+            tag = f"batch_{n_runs}"
+            got = {}
+            for where, devices in (("one", [card]), ("split", logical)):
+                got[where] = counted(
+                    f"{tag}_{where}", lambda: run_keyed_batch(
+                        run, seeds[:n_runs], policy, devices=devices),
+                    ("moment_curves_belief", "moment_curves_agg_belief"))
+            for name in got["one"]._fields:
+                if not torch.equal(getattr(got["one"], name),
+                                   getattr(got["split"], name)):
+                    raise AssertionError(f"split batch of {n_runs}: {name} "
+                                         "differs from one device's")
+            work = n_runs * b_cfg.n_steps
+            out[tag] = {where: work / seconds[f"{tag}_{where}"]
+                        for where in got}
+            log(f"a batch of {n_runs} runs x {b_cfg.n_steps} steps "
+                f"(phase 4b's seeds; padded to "
+                f"{-(-n_runs // MESH_SHARDS) * MESH_SHARDS}) split over "
+                f"{MESH_SHARDS} logical devices: {out[tag]['split']:.1f} "
+                f"runs x steps/s, against one device's "
+                f"{out[tag]['one']:.1f}; every field equal bit for bit (gap "
+                f"0); launches {launches[tag + '_split']}")
+
+        # 3. calibration at smoke and the importance probe at PAPER_FULL
+        scale = common.scale_for("smoke")
+        c_cfg = common.sim_config(scale)
+        c_run = make_run(c_cfg, common.grid_for(scale, c_cfg), SECOND,
+                         device=DEVICE)
+        keys = split_seeds(0, scale.n_runs)
+        cal = {where: counted(f"calibrate_{where}", lambda: calibrate(
+            c_run, SECOND, keys, capacity=c_cfg.capacity, tau=scale.tau,
+            devices=devices), ("moment_curves_belief",
+                               "moment_curves_agg_belief"))
+            for where, devices in (("one", [card]), ("split", logical))}
+        a, b = cal["one"], cal["split"]
+        if a.theta != b.theta or len(a.stages) != len(b.stages) or not all(
+                np.array_equal(x.agg_fail, y.agg_fail)
+                and np.array_equal(x.util, y.util)
+                for x, y in zip(a.stages, b.stages)):
+            raise AssertionError(f"calibrate over {MESH_SHARDS} devices: "
+                                 f"theta {b.theta} against {a.theta}, or "
+                                 "the rates differ")
+        log(f"calibrate at smoke ({c_cfg.max_slots} slots, {c_cfg.n_steps} "
+            f"steps, {len(keys)} runs, {a.n_sims} simulations): theta "
+            f"{a.theta:.6g} over 1 device and over {MESH_SHARDS}, every "
+            f"stage's rates bit for bit; {seconds['calibrate_one']:.2f} s "
+            f"against {seconds['calibrate_split']:.2f} s")
+        plans = {where: counted(f"probe_{where}", lambda: make_importance_plan(
+            2018, PAPER_FULL, grid, n_probe=MESH_PROBES,
+            probe_batch=MESH_PROBES, device=DEVICE, devices=devices), ())
+            for where, devices in (("one", [card]), ("split", logical))}
+        bm_one, bm_split = plans["one"].bm_probe, plans["split"].bm_probe
+        if not (np.array_equal(bm_one, bm_split)
+                and np.isfinite(bm_one).all()):
+            raise AssertionError("importance probe over 4 devices: BM "
+                                 "differs")
+        log(f"a {MESH_PROBES}-probe make_importance_plan at PAPER_FULL: BM "
+            f"equal over 1 and {MESH_SHARDS} devices (median "
+            f"{float(np.median(bm_one)):.1f}); {seconds['probe_one']:.2f} s "
+            f"against {seconds['probe_split']:.2f} s")
+
+        # 4. what made the fused lane's interpolation row-independent
+        out["matmul_rows_differing"] = mesh_matmul_rows()
+        log("cuBLAS [M, 25] @ [25, 48] chunks of an 8,192-row product whose "
+            "rows differ from the product's, by M: "
+            f"{out['matmul_rows_differing']}")
+    finally:
+        if old is None:
+            del os.environ[DEVICE_COUNT_VAR]
+        else:
+            os.environ[DEVICE_COUNT_VAR] = old
+    for name in ("moment_curves_belief", "moment_curves_agg_belief"):
+        records[name]["launches_mesh"] = {
+            tag: n[name] for tag, n in launches.items() if n[name]}
+    out["seconds"] = seconds
+    log("phase 17 numbers: " + json.dumps(out, default=float))
+
+
 def main():
     import torch
 
@@ -4170,6 +4451,9 @@ def main():
     torch.cuda.empty_cache()
     with phase("16. training"):
         training_path(records)
+
+    with phase("17. the mesh at PAPER_FULL"):
+        mesh_path(records)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

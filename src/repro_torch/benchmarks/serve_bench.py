@@ -16,6 +16,9 @@ i.e. admission without the incrementally maintained aggregate):
   * ``serve/<scale>/engine|naive/slots=<q>`` — the same at a quarter of
     the preset's slot table: the naive lane's cost a decision scales with
     the table, the micro-batched lane's does not.
+  * ``serve/<scale>/sharded`` — the engine with its slot table sharded over
+    8 devices (logical ones, ``REPRO_TORCH_DEVICE_COUNT``, where the host
+    has fewer), the fused aggregate lane the sharded refresh mirrors.
   * ``serve/<scale>/deadline_flush`` — the SLO-aware flush scheduler under
     paced sub-width load: p50/p99 submit-to-decision latency from the
     engine's own histogram, and its deadline-miss counter.
@@ -23,9 +26,6 @@ i.e. admission without the incrementally maintained aggregate):
     tau) operating points republished from the BENCH file's own
     ``tuning/calibrate/<kind>`` rows; ``serve.load_operating_point`` (the
     daemon's default thresholds) reads these rows.
-
-The JAX package's ``serve/<scale>/sharded`` row (the slot table over 8
-devices) waits for the mesh: ``_measure_sharded`` raises.
 
 ``scale_name="smoke"`` selects a seconds-scale preset (the JAX package's
 ``REPRO_SMOKE=1`` preset). The arrivals and events are drawn by
@@ -49,7 +49,7 @@ import torch
 
 from ..bridge import to_numpy
 from ..core import SECOND, make_policy
-from ..device import resolve_device
+from ..device import DEVICE_COUNT_VAR, resolve_device
 from ..serve import (Arrival, OnlineAdmissionEngine, format_operating_derived,
                      operating_row_name)
 from ..sim import draw_arrival_stream
@@ -101,14 +101,15 @@ def _offered_stream(cfg, width: int, n_slices: int, seed: int, device):
 
 
 def _measure(cfg, grid, pol, *, naive: bool, width: int, n_ticks: int,
-             per_tick: int, seed: int, device) -> dict:
+             per_tick: int, seed: int, device, shards=None) -> dict:
     """Drive the engine ``n_ticks`` windows at ``per_tick`` offered arrivals
     each, timing every decision call (a micro-batch of ``width``, or width
     1 on the naive lane; each ends in the accept mask's copy to the host).
     Returns decisions/s, latency quantiles and the occupied slots."""
     device = resolve_device(device)
     eng = OnlineAdmissionEngine(cfg, grid, SECOND, pol, naive=naive,
-                                micro_batch=width, device=device)
+                                micro_batch=width, shards=shards,
+                                device=device)
     bw = 1 if naive else width
     batches_per_tick = max(per_tick // bw, 1)
     slices = _offered_stream(cfg, bw, (n_ticks + 1) * batches_per_tick, seed,
@@ -137,7 +138,7 @@ def _measure(cfg, grid, pol, *, naive: bool, width: int, n_ticks: int,
         "p50_ms": float(np.percentile(lat_s, 50) * 1e3),
         "p99_ms": float(np.percentile(lat_s, 99) * 1e3),
         "us_per_decision": float(np.sum(lat_s)) * 1e6 / n_dec,
-        "occupied": int(eng._cs.slots.alive.sum()),
+        "occupied": int(eng.core.gather_slots(eng._cs.slots).alive.sum()),
         "n_decisions": int(n_dec),
     }
 
@@ -182,13 +183,39 @@ def _measure_telemetry_pair(cfg, grid, pol, *, width: int, n_ticks: int,
     return tuple(float(np.median(lat[i]) * 1e6 / width) for i in (0, 1))
 
 
+def _sharded_entry(scale_name: str, seed: int, width: int, n_ticks: int,
+                   per_tick: int, shards: int, device) -> dict:
+    """The sharded row's measurement: the preset's config (with the fused
+    aggregate lane, which the sharded refresh mirrors) through ``_measure``
+    with the slot table over ``shards`` devices."""
+    scale = scale_for(scale_name)
+    cfg = sim_config(scale)._replace(agg_backend="fused")
+    grid = grid_for(scale, cfg)
+    rho = _calibrated_thetas(scale.name).get("second", FALLBACK_RHO)
+    pol = make_policy(SECOND, rho=rho, capacity=cfg.capacity)
+    return _measure(cfg, grid, pol, naive=False, width=width,
+                    n_ticks=n_ticks, per_tick=per_tick, seed=seed,
+                    device=device, shards=shards)
+
+
 def _measure_sharded(scale_name: str, *, seed: int, width: int, n_ticks: int,
-                     per_tick: int, shards: int = 8) -> dict:
-    """The JAX package's ``sharded`` row: the engine with its slot table
-    over ``shards`` devices. The port's engine refuses ``shards=``."""
-    raise NotImplementedError(
-        f"serve/{scale_name}/sharded (the slot table over {shards} devices) "
-        "is not ported yet: ROADMAP.md, Queue A, item 5 (the mesh)")
+                     per_tick: int, shards: int = 8, device="cuda") -> dict:
+    """``_sharded_entry`` with ``REPRO_TORCH_DEVICE_COUNT`` set to
+    ``shards`` for its duration and restored afterwards: ``shards``
+    devices, logical ones where the host has fewer. (The JAX driver needs a
+    subprocess, since XLA fixes its device count at start-up; the port
+    reads the variable at each call.)"""
+    old = os.environ.get(DEVICE_COUNT_VAR)
+    os.environ[DEVICE_COUNT_VAR] = str(shards)
+    try:
+        return _sharded_entry(scale_name, seed=seed, width=width,
+                              n_ticks=n_ticks, per_tick=per_tick,
+                              shards=shards, device=device)
+    finally:
+        if old is None:
+            del os.environ[DEVICE_COUNT_VAR]
+        else:
+            os.environ[DEVICE_COUNT_VAR] = old
 
 
 def _measure_deadline(cfg, grid, pol, *, width: int, slo_ms: float,
@@ -300,6 +327,14 @@ def run(scale_name: str = "tiny", seed: int = 0, device="cuda") -> list:
             f"serve/{scale.name}/{tag}/slots={small.max_slots}",
             m["us_per_decision"],
             _derived(m, 1 if naive else width, small.max_slots)))
+
+    # -- the slot table sharded over 8 devices --------------------------------
+    m_sh = _measure_sharded(scale.name, seed=seed, width=width,
+                            n_ticks=n_ticks, per_tick=per_tick, shards=8,
+                            device=device)
+    rows.append(csv_row(
+        f"serve/{scale.name}/sharded", m_sh["us_per_decision"],
+        _derived(m_sh, width, cfg.max_slots) + " shards=8"))
 
     # -- the deadline-aware flush scheduler at nominal load -----------------
     slo_ms = 200.0 if smoke else 250.0

@@ -288,10 +288,19 @@ def interp_matrix(t_grid: torch.Tensor, nd: int):
 
 
 def _curves_from_packed(p: PackedBelief, t_grid: torch.Tensor,
-                        w_mat: torch.Tensor, priors: PopulationPriors,
-                        nd: int) -> MomentCurves:
+                        idx: torch.Tensor, frac: torch.Tensor,
+                        priors: PopulationPriors, nd: int) -> MomentCurves:
     """Curves [..., N] from packed factors; log1p(t/b) / log1p(2t/b) shared
-    across the Q/B/M factors, D-term interpolated via one matmul."""
+    across the Q/B/M factors.
+
+    The D-term is interpolated between the two checkpoints around each grid
+    point (``interp_points``' ``idx``, ``frac``): the sum over the ND + 1
+    points of ``interp_matrix``'s hat weights, of which only those two are
+    nonzero, in a fixed order and with each product rounded, as the kernels'
+    plain versions do. A row's bits then do not depend on how many rows a
+    call evaluates (a matmul's may: a BLAS picks its kernel by the row
+    count), which is what lets a sharded slot table evaluate each shard's
+    curves apart (``sim.core._shard_over_slots``)."""
     t = t_grid
     a, b, c = p.a[..., None], p.b[..., None], p.cores[..., None]
     l1 = torch.log1p(t / b)
@@ -319,7 +328,8 @@ def _curves_from_packed(p: PackedBelief, t_grid: torch.Tensor,
                               midpoint=True)
     ones = torch.ones(ed_sub.shape[:-1] + (1,), dtype=F32,
                       device=ed_sub.device)
-    ed = torch.cat([ones, ed_sub], dim=-1) @ w_mat
+    ed_ext = torch.cat([ones, ed_sub], dim=-1)
+    ed = ed_ext[..., idx] * (1.0 - frac) + ed_ext[..., idx + 1] * frac
     vd = ed * (1.0 - ed)
 
     er = eq + ebn
@@ -334,10 +344,12 @@ def moment_curves_fused(bel: GammaBelief, cores: torch.Tensor,
                         d_points: int = 32) -> MomentCurves:
     """Per-slot curves via the packed fast path — same closed forms and
     midpoint D-term as ``moment_curves``; only subexpression sharing and the
-    matrix interpolation differ (agreement to ~1e-6 relative)."""
+    two-point interpolation differ (agreement to ~1e-6 relative). A row's
+    bits do not depend on the rows evaluated beside it."""
     packed = pack_belief(bel, cores, priors)
-    _, _, w_mat = interp_matrix(t_grid.to(F32), d_points)
-    return _curves_from_packed(packed, t_grid, w_mat, priors, d_points)
+    _, idx, frac = interp_points(t_grid.to(F32), d_points)
+    return _curves_from_packed(packed, t_grid, idx.long(), frac, priors,
+                               d_points)
 
 
 def _masked_sum(curves: MomentCurves, mask: torch.Tensor) -> MomentCurves:
@@ -359,12 +371,12 @@ def aggregate_moment_curves(bel: GammaBelief, cores: torch.Tensor,
     s = cores.shape[-1]
     packed = pack_belief(bel, cores, priors)
     mask = alive.to(t_grid.dtype)
-    _, _, w_mat = interp_matrix(t_grid.to(F32), d_points)
+    _, idx, frac = interp_points(t_grid.to(F32), d_points)
+    curves = lambda p: _curves_from_packed(p, t_grid, idx.long(), frac,
+                                           priors, d_points)
 
     if s <= block_size:
-        return _masked_sum(
-            _curves_from_packed(packed, t_grid, w_mat, priors, d_points),
-            mask)
+        return _masked_sum(curves(packed), mask)
 
     pad = (-s) % block_size
     if pad:
@@ -379,9 +391,7 @@ def aggregate_moment_curves(bel: GammaBelief, cores: torch.Tensor,
     vl_acc = torch.zeros_like(el_acc)
     for lo in range(0, s + pad, block_size):
         blk = PackedBelief(*(x[lo:lo + block_size] for x in packed))
-        part = _masked_sum(
-            _curves_from_packed(blk, t_grid, w_mat, priors, d_points),
-            mask[lo:lo + block_size])
+        part = _masked_sum(curves(blk), mask[lo:lo + block_size])
         el_acc = el_acc + part.EL
         vl_acc = vl_acc + part.VL
     return MomentCurves(EL=el_acc, VL=vl_acc)

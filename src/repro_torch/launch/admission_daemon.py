@@ -30,15 +30,20 @@ pending request exceeds its L-millisecond decision SLO (misses surface as
 C1,C2,...`` serves a routed fleet of clusters with those capacities (their
 sum replaces ``--capacity``), with a ``fleet_policy`` from the operating
 point: the fleet-total threshold split in proportion to capacity, rho
-shared; ``/metrics`` then carries per-cluster gauges. ``--shards`` is not
-ported yet (ROADMAP Queue A, item 5, the mesh) and raises.
+shared; ``/metrics`` then carries per-cluster gauges.
+
+Scaling: ``--shards N`` shards the slot table over N devices (one engine,
+bit for bit the single-device decisions — see ``sim.core.slot_mesh``; the
+engine's aggregate then takes the fused lane, which the sharded refresh
+mirrors). Without N devices, ``REPRO_TORCH_DEVICE_COUNT=N`` gives N logical
+ones on those there are.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.admission_daemon --hours 2000 \
       --capacity 4096 [--policy second|first|zeroth] \
       [--param RHO_OR_THRESHOLD] [--micro-batch 8] [--metrics-port 9109] \
-      [--throttle 0.05] [--flush-slo-ms 50] [--fleet 8000,6000,4000,2000] \
-      [--device cuda|cpu]
+      [--throttle 0.05] [--shards 4] [--flush-slo-ms 50] \
+      [--fleet 8000,6000,4000,2000] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -66,8 +71,6 @@ CHIPS_PER_REPLICA = {
 
 POLICY_KINDS = {"zeroth": ZEROTH, "first": FIRST, "second": SECOND}
 
-_NOT_PORTED = "is not ported yet: ROADMAP.md, Queue A, item 5 ({})"
-
 
 def build_engine(args):
     """CLI args -> (engine, stream, gen, param): the configured online
@@ -75,11 +78,10 @@ def build_engine(args):
     draw the events from (seeded ``--seed``, as ``make_run``'s), and the
     policy parameter."""
     from ..serve import OnlineAdmissionEngine, default_policy_param
-    from ..sim import (FleetConfig, draw_arrival_stream, make_config,
-                       stream_config)
+    from ..sim import (AGG_FUSED, FleetConfig, draw_arrival_stream,
+                       make_config, stream_config)
 
-    if getattr(args, "shards", None) not in (None, 1):
-        raise NotImplementedError("--shards " + _NOT_PORTED.format("mesh"))
+    shards = getattr(args, "shards", None)
     kind_name = args.policy
     kind = POLICY_KINDS[kind_name]
     telemetry = bool(getattr(args, "telemetry", False)
@@ -88,6 +90,8 @@ def build_engine(args):
                        horizon_hours=args.hours, dt=args.dt,
                        max_slots=args.max_slots, max_arrivals=args.micro_batch,
                        telemetry=telemetry)
+    if (shards or 1) > 1:
+        base = base._replace(agg_backend=AGG_FUSED)
     grid = geometric_grid(args.dt, args.hours * 3, 32)
 
     param = args.param
@@ -106,7 +110,7 @@ def build_engine(args):
                           capacity=base.capacity)
     engine = OnlineAdmissionEngine(cfg, grid, kind, pol,
                                    micro_batch=args.micro_batch,
-                                   scale=args.scale,
+                                   scale=args.scale, shards=shards,
                                    flush_slo_ms=getattr(args, "flush_slo_ms",
                                                         None),
                                    seed=args.seed, device=args.device)
@@ -219,8 +223,9 @@ def parse_args(argv=None):
                     help="sleep between ticks so /metrics can be watched "
                          "while the daemon runs")
     ap.add_argument("--shards", type=int, default=None, metavar="N",
-                    help="shard the slot table over N devices (not ported "
-                         "yet: ROADMAP Queue A, item 5)")
+                    help="shard the slot table over N devices (single "
+                         "cluster only; decisions stay bit-for-bit equal "
+                         "to the unsharded engine)")
     ap.add_argument("--flush-slo-ms", type=float, default=None, metavar="MS",
                     help="decision-latency SLO: run the deadline-aware "
                          "flush scheduler instead of per-tick flushing")

@@ -20,6 +20,13 @@ float32, so the counters carry the JAX package's bits for the same inputs.
 With a run axis (``make_run`` on a batch of R runs) every leaf has a
 leading ``[R]``; ``telemetry_summary`` reads one run's rider.
 
+A sharded slot table (``sim.core.slot_mesh``) keeps the rider *replicated*
+across its shards: every fold consumes slot-reduced values that the sharded
+core computes from the gathered table on the mesh's first device, where the
+one replica lives, so ``telemetry_summary`` reads that replica with no
+cross-shard reduction (bit for bit the unsharded rider,
+``tests/test_torch_mesh.py``).
+
 Contents:
 
   * decision counters by reason — ``n_admit`` / ``n_reject_capacity`` (the

@@ -1,9 +1,10 @@
 """Online admission service: the simulator's admission core, served live.
 
 PyTorch counterpart of the JAX package's ``serve/admission.py`` for one
-cluster or a routed fleet, on one device. The paper's provider "has to continuously decide"
-admission as workloads arrive; this module is that decision loop as a
-long-lived engine rather than ``make_run``'s offline loop:
+cluster (its slot table on one device, or sharded over several with
+``shards=``) or a routed fleet. The paper's provider "has to continuously
+decide" admission as workloads arrive; this module is that decision loop as
+a long-lived engine rather than ``make_run``'s offline loop:
 
   * ``OnlineAdmissionEngine`` holds one ``CoreState`` (slot table, beliefs,
     the maintained aggregate moment curves, the optional telemetry rider) on
@@ -40,8 +41,15 @@ them: ``tick(gen=...)`` draws each cluster's events from its own generator
 (``sim.simulator.fleet_generators``), and a micro-batch's curves are
 evaluated once for every cluster.
 
-Left out, raising ``NotImplementedError`` that names its ROADMAP Queue A
-item: ``shards=`` (item 5, the mesh).
+``shards=N`` (single-cluster engines only) shards the slot table over N
+devices through ``sim.core.slot_mesh`` (``device.visible_devices`` of the
+engine's kind; ``REPRO_TORCH_DEVICE_COUNT`` asks for logical ones): the
+refresh evaluates each shard's curves on its own device and reduces them in
+the unsharded fused lane's order, the rest runs once on the mesh's first
+device on the gathered table, so decisions, metrics and the rider stay bit
+for bit the unsharded engine's. The sharded refresh is the fused lane's:
+the config must say ``agg_backend="fused"``. Every engine-side read of the
+slot table goes through the core's ``gather_slots`` / ``util``.
 """
 from __future__ import annotations
 
@@ -63,13 +71,13 @@ from ..core.belief import GammaBelief, belief_from_prior, observe_initial_size
 from ..core.policies import PolicyParams
 from ..core.processes import (F32, DeploymentParams, StepEvents,
                               sample_initial_size, sample_params)
-from ..device import resolve_device
+from ..device import canonical_device
 from ..obs.counters import TelemetryState, telemetry_summary
 from ..obs.export import HostHistogram, log_buckets
 from ..obs.tracing import DecisionTracer, annotate
 from ..core.moments import MomentCurves
 from ..sim.core import (ArrivalStream, CoreState, FleetConfig, SimConfig,
-                        StepOutcome, make_admission_core, tree_to)
+                        StepOutcome, make_admission_core, slot_mesh, tree_to)
 from ..sim.routing import RouteContext
 from ..sim.simulator import (_accumulate_step, _check_fleet_policy_capacity,
                              _fleet_metrics,
@@ -78,8 +86,6 @@ from ..sim.simulator import (_accumulate_step, _check_fleet_policy_capacity,
 
 _REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", ".."))
-
-_NOT_PORTED = "is not ported yet: ROADMAP.md, Queue A, item {}"
 
 
 def _host(x) -> np.ndarray:
@@ -185,6 +191,9 @@ class OnlineAdmissionEngine:
         ``metrics_snapshot()["engine"]["deadline_misses"]``.
       * ``seed`` roots the engine's seed chain: the observed-events tick
         path derives its window seed with ``window_seed(seed, tick)``.
+      * ``shards=N`` shards the slot table over the first N visible devices
+        of the engine's kind (see the module docstring); the state's
+        replicated part and the decisions then live on the first of them.
 
     Observability: with ``cfg.telemetry`` the ``CoreState`` carries the
     telemetry rider through every step, and ``metrics_snapshot()`` exports
@@ -212,9 +221,12 @@ class OnlineAdmissionEngine:
         if router is not None and not self.fleet:
             raise ValueError("router= routes a fleet's arrivals: pass a "
                              "FleetConfig")
-        if shards is not None and int(shards) != 1:
-            raise NotImplementedError("shards= " + _NOT_PORTED.format(
-                "5 (mesh)"))
+        self.n_shards = int(shards or 1)
+        if self.n_shards > 1 and self.fleet:
+            raise ValueError(
+                "shards= shards one cluster's slot table over devices; "
+                "fleet engines already spread state over the cluster axis "
+                "— run one sharded engine per cluster instead")
         base = cfg.base if self.fleet else cfg
         if scale is not None:
             from ..tuning.kcurve import pick_agg_refresh
@@ -225,12 +237,12 @@ class OnlineAdmissionEngine:
         self.cfg = (FleetConfig(base=base, capacities=cfg.capacities)
                     if self.fleet else base)
         self.base = base
-        self.n_shards = 1
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = canonical_device(device)
+        mesh = (slot_mesh(self.n_shards, device=self.device)
+                if self.n_shards > 1 else None)
         self.core = make_admission_core(base, grid, policy_kind,
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
+        self.device = self.core.device     # a mesh's first device
         # the stream every thread's work goes to (None on the CPU)
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -399,7 +411,8 @@ class OnlineAdmissionEngine:
                 elif self.fleet:
                     gens = self._fleet_generators(gen)
                     ev = _sample_tables(self.core, gens[:self.n_c],
-                                        self._cs.slots)
+                                        self.core.gather_slots(
+                                            self._cs.slots))
                     self._cs, self._out = self.core.observe_events(
                         self._cs, ev, self._caps)
                     self._route_gen = gens[self.n_c]
@@ -418,7 +431,7 @@ class OnlineAdmissionEngine:
                 return
             slots, util_end = _accumulate_step(
                 self._cs.slots, self._out, self._acc, self._rej,
-                self.base.dt)
+                self.base.dt, self.core.util(self._cs.slots))
             self._cs = self._cs._replace(slots=slots)
             self._util_trace.append(util_end)
             self._fail_trace.append(self._out.failed)
@@ -560,8 +573,7 @@ class OnlineAdmissionEngine:
                                                cand, stream_t, valid_t)
             # post-placement utilization, so a second flush inside the
             # same window admits against the already-placed arrivals
-            self._util = torch.sum(cs.slots.cores * cs.slots.alive.to(F32),
-                                   dim=-1)
+            self._util = self.core.util(cs.slots)
             self._cs = cs
             accept = accept.cpu().numpy()
             if not self.fleet:
@@ -717,10 +729,11 @@ class OnlineAdmissionEngine:
                 shape = (self.n_c, 0) if self.fleet else (0,)
                 util_trace = fail_trace = torch.zeros(shape,
                                                       device=self.device)
+            slots = self.core.gather_slots(self._cs.slots)
             if not self.fleet:
-                return _run_metrics(self.base, self._cs.slots, util_trace,
+                return _run_metrics(self.base, slots, util_trace,
                                     fail_trace, horizon_hours=horizon)
-            return _fleet_metrics(self.base, self._caps, self._cs.slots,
+            return _fleet_metrics(self.base, self._caps, slots,
                                   util_trace, fail_trace, self._rej_all,
                                   horizon_hours=horizon)
 

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``repro.sim.core``: one cluster or a fleet, every
 prior mode (GLOBAL, §6 PSEUDO, §7 MIX_LABELED and MIX_UNLABELED), with the
-telemetry rider and no mesh:
+telemetry rider, and one cluster's slot table sharded over a device mesh
+(``slot_mesh``, ``make_admission_core(..., mesh=)``):
 
   * ``CoreState`` — the slot table with per-deployment conjugate beliefs
     (``SimState``) plus the incrementally-maintained cluster aggregate
@@ -23,6 +24,10 @@ telemetry rider and no mesh:
       - ``candidates(rows_t)``             [A, N] candidate moment curves
       - ``decide_batch(policy, cs, …)``    sequential admission + slot
                                            placement + incremental fold
+      - ``gather_slots(slots)``            the whole slot table on the
+                                           core's device (the table itself
+                                           unless it is sharded)
+      - ``util(slots)``                    active cores of the table
 
 With ``SimConfig(telemetry=True)`` the state carries the
 ``obs.counters.TelemetryState`` rider: ``refresh_aggregates`` marks the
@@ -67,23 +72,22 @@ from ..core.belief import (GammaBelief, apply_pseudo_observations,
                            belief_from_prior, observe_initial_size,
                            update_on_events)
 from ..core.moments import (MomentCurves, aggregate_moment_curves,
-                            moment_curves, moment_curves_fused)
+                            masked_curve_reduction, moment_curves,
+                            moment_curves_fused)
 from ..core.policies import (ZEROTH, PolicyParams, admit_sequential,
                              admit_sequential_fits, admit_sequential_verbose)
 from ..core.pricing import mixture_moments
 from ..core.processes import (F32, DeploymentParams, PopulationPriors,
                               StepEvents, sample_initial_size, sample_params,
                               sample_pseudo_observations, sample_step_events)
-from ..device import resolve_device
+from ..device import (Mesh, canonical_device, resolve_device,
+                      visible_devices)
 from ..obs.counters import (TelemetryState, WindowStats, fold_decisions,
                             fold_window, init_telemetry, mark_refresh)
 
 GLOBAL, PSEUDO, MIX_LABELED, MIX_UNLABELED = "global", "pseudo", "labeled", "unlabeled"
 AGG_FUSED, AGG_REFERENCE, AGG_KERNEL = "fused", "reference", "kernel"
 
-# where each option the port leaves out will be ported
-_NOT_PORTED = "is not ported yet: ROADMAP.md, Queue A, {!r}"
-_ROADMAP_MESH = "Telemetry, mesh and fleet"
 # the two components' weights of an unlabeled (§7) arrival
 _MIX_WEIGHTS = (0.5, 0.5)
 
@@ -589,9 +593,15 @@ def _apply_step_events(cfg: SimConfig, slots: SimState, ev: StepEvents,
                               departed=departed), stats
 
 
+def _slot_util(slots: SimState) -> torch.Tensor:
+    """Active cores of a slot table ([S] leaves, or [..., S])."""
+    return torch.sum(slots.cores * slots.alive.to(F32), dim=-1)
+
+
 class AdmissionCore(NamedTuple):
     """Bundle of functions over ``CoreState`` for one static configuration
-    (see the module docstring). Built by ``make_admission_core``."""
+    (see the module docstring). Built by ``make_admission_core``; ``mesh``
+    is the ``device.Mesh`` its slot table is sharded over, or ``None``."""
 
     cfg: SimConfig
     grid: torch.Tensor
@@ -608,17 +618,44 @@ class AdmissionCore(NamedTuple):
     candidates: Callable[[CandidateRows], MomentCurves]
     decide_batch: Callable[..., tuple]
     decide_batch_traced: Callable[..., tuple]
+    gather_slots: Callable[[SimState], SimState]
+    util: Callable[[SimState], torch.Tensor]
+    mesh: Optional[Mesh] = None
+
+
+def slot_mesh(n_shards: int, devices=None, *, device="cuda") -> Mesh:
+    """A 1-d device mesh named ``"slots"`` over the first ``n_shards`` of
+    ``devices`` (default: ``device.visible_devices`` of ``device``'s kind,
+    the card unless the caller passes ``"cpu"``): the mesh
+    ``make_admission_core(..., mesh=...)`` shards the slot table over.
+    Raises when there are too few devices, naming the variable that asks
+    for logical ones."""
+    if devices is None:
+        devices = visible_devices(device)
+    devices = [canonical_device(d) for d in devices]
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} must be >= 1")
+    if n_shards > len(devices):
+        raise ValueError(
+            f"n_shards={n_shards} exceeds the {len(devices)} visible "
+            f"device(s); export REPRO_TORCH_DEVICE_COUNT={n_shards} for "
+            "that many logical devices on the ones there are")
+    return Mesh(tuple(devices[:n_shards]), ("slots",))
 
 
 def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
                         device="cuda", mesh=None) -> AdmissionCore:
     """Build the admission-core function bundle for one configuration, on
-    ``device`` (the card unless the caller passes ``"cpu"``)."""
+    ``device`` (the card unless the caller passes ``"cpu"``).
+
+    ``mesh`` (a 1-d ``device.Mesh``, see ``slot_mesh``) selects the sharded
+    lane: the slot table is split over the mesh's devices and the core runs
+    on its first device (``device`` is then not read); decisions,
+    aggregates, metrics and the rider stay bit for bit the unsharded
+    core's (``_shard_over_slots``)."""
     _validate_config(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh " + _NOT_PORTED.format(_ROADMAP_MESH))
-    device = resolve_device(device)
+    device = (canonical_device(mesh.devices[0]) if mesh is not None
+              else resolve_device(device))
     if not isinstance(grid, torch.Tensor):
         grid = torch.tensor(grid, dtype=F32)
     grid = grid.to(device=device, dtype=F32)
@@ -717,11 +754,148 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         return _decide_core(policy, cs, util, cand, stream_t, valid,
                             verbose=True)
 
-    return AdmissionCore(
+    core = AdmissionCore(
         cfg=cfg, grid=grid, policy_kind=policy_kind,
         needs_moments=needs_moments, n_grid=n_grid, device=device, init=init,
         refresh_aggregates=refresh_aggregates, sample_events=sample_events,
         observe_events=observe_events, apply_events=apply_events,
         candidate_rows=lambda stream: candidate_rows(cfg, stream),
         candidates=candidates_fn, decide_batch=decide_batch,
-        decide_batch_traced=decide_batch_traced)
+        decide_batch_traced=decide_batch_traced,
+        gather_slots=lambda slots: slots, util=_slot_util)
+    return core if mesh is None else _shard_over_slots(core, mesh)
+
+
+class Shards(tuple):
+    """One [S] leaf of a sharded slot table: its shards' tensors in mesh
+    order, each on its shard's device and none a view of another."""
+
+
+def _slot_leaves(slots: SimState) -> list:
+    """The [S] leaves of a slot table, in a fixed order."""
+    return [slots.alive, slots.cores, *slots.params, *slots.bel]
+
+
+def _with_slot_leaves(slots: SimState, leaves) -> SimState:
+    n_p = len(DeploymentParams._fields)
+    return slots._replace(alive=leaves[0], cores=leaves[1],
+                          params=DeploymentParams(*leaves[2:2 + n_p]),
+                          bel=GammaBelief(*leaves[2 + n_p:]))
+
+
+def _shard_over_slots(core: AdmissionCore, mesh: Mesh) -> AdmissionCore:
+    """Wrap an ``AdmissionCore`` so that the slot table is sharded over
+    ``mesh`` (one axis), keeping decisions, aggregates, metrics and the
+    rider **bit for bit** the unsharded core's. The counterpart of the JAX
+    package's ``shard_map`` lane, in one process:
+
+      * Every [S] leaf of ``SimState`` is a ``Shards``: ``S / n`` slots a
+        device, each shard a tensor of its own (on logical devices of one
+        card too). The scalar accumulators, the aggregate curves, the rider,
+        the policy and the arrivals are replicated: held once, on the
+        mesh's first device, where the replicated work runs.
+      * ``refresh_aggregates`` evaluates each shard's per-slot curves on
+        its own device, gathers the [S, N] curves on the first device and
+        reduces them with ``masked_curve_reduction``, the unsharded fused
+        lane's block order (a left fold of 512-slot blocks). A row's curves
+        have the same bits whatever rows are evaluated beside it
+        (``core.moments._curves_from_packed``), and per-shard partial sums
+        added across shards would not be the same sum: gathering the curves
+        and reducing them in the canonical order is what keeps it exact.
+      * The step's dynamics and admission (``sample_events``,
+        ``observe_events``, ``apply_events``, ``decide_batch[_traced]``)
+        run once, on the first device, on the gathered table, and their
+        [S] results are sliced back to the shards (a leaf a step leaves
+        alone keeps its shards). The events are drawn once from the
+        caller's generator on the gathered table, as the unsharded core
+        draws them.
+    """
+    cfg = core.cfg
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"mesh must have exactly one axis, got "
+                         f"{mesh.axis_names}")
+    devices = tuple(canonical_device(d) for d in mesh.devices)
+    n_shards = len(devices)
+    if cfg.max_slots % n_shards:
+        raise ValueError(
+            f"max_slots={cfg.max_slots} must be divisible by the "
+            f"{n_shards}-device mesh")
+    if cfg.agg_backend != AGG_FUSED:
+        raise ValueError(
+            f"sharded admission core requires agg_backend={AGG_FUSED!r} "
+            f"(got {cfg.agg_backend!r}): the sharded refresh mirrors the "
+            "fused block reduction bit-for-bit")
+    s_local = cfg.max_slots // n_shards
+    first = core.device
+    grids = [core.grid.to(d) for d in devices]
+
+    def gather(leaf: Shards) -> torch.Tensor:
+        return torch.cat([x.to(first) for x in leaf])
+
+    def scatter(x: torch.Tensor) -> Shards:
+        return Shards(x[i * s_local:(i + 1) * s_local].to(d, copy=True)
+                      for i, d in enumerate(devices))
+
+    def gather_slots(slots: SimState) -> SimState:
+        return _with_slot_leaves(slots, [gather(x)
+                                         for x in _slot_leaves(slots)])
+
+    def rescatter(new: SimState, full: SimState, old: SimState) -> SimState:
+        return _with_slot_leaves(new, [
+            o if x is f else scatter(x) for x, f, o in
+            zip(_slot_leaves(new), _slot_leaves(full), _slot_leaves(old))])
+
+    def init(runs=None) -> CoreState:
+        if runs is not None:
+            raise ValueError("a sharded core holds one run's slot table")
+        cs = core.init()
+        return cs._replace(slots=_with_slot_leaves(
+            cs.slots, [scatter(x) for x in _slot_leaves(cs.slots)]))
+
+    def refresh_aggregates(cs: CoreState) -> CoreState:
+        if not core.needs_moments:
+            return core.refresh_aggregates(cs)
+        tel = mark_refresh(cs.tel) if cfg.telemetry else cs.tel
+        bel = cs.slots.bel
+        parts = [moment_curves_fused(GammaBelief(*(x[i] for x in bel)),
+                                     cs.slots.cores[i], grids[i], cfg.priors,
+                                     d_points=cfg.d_points)
+                 for i in range(n_shards)]
+        curves = MomentCurves(*(torch.cat([x.to(first) for x in xs])
+                                for xs in zip(*parts)))
+        agg = masked_curve_reduction(curves, gather(cs.slots.alive).to(F32))
+        return cs._replace(agg_el=agg.EL, agg_vl=agg.VL, tel=tel)
+
+    def on_gathered(cs: CoreState, step):
+        """``step(full_cs) -> (cs, *rest)`` on the gathered table, its [S]
+        results sliced back to the shards."""
+        full = gather_slots(cs.slots)
+        new, *rest = step(cs._replace(slots=full))
+        return (new._replace(slots=rescatter(new.slots, full, cs.slots)),
+                *rest)
+
+    def observe_events(cs: CoreState, events: StepEvents, capacity=None):
+        return on_gathered(cs, lambda c: core.observe_events(c, events,
+                                                             capacity))
+
+    def apply_events(gen, cs: CoreState, capacity=None):
+        return on_gathered(cs, lambda c: core.observe_events(
+            c, core.sample_events(gen, c.slots), capacity))
+
+    def decide_batch(policy: PolicyParams, cs: CoreState, *args):
+        return on_gathered(cs, lambda c: core.decide_batch(policy, c, *args))
+
+    def decide_batch_traced(policy: PolicyParams, cs: CoreState, *args):
+        return on_gathered(cs, lambda c: core.decide_batch_traced(
+            policy, c, *args))
+
+    return core._replace(
+        init=init, refresh_aggregates=refresh_aggregates,
+        sample_events=lambda gen, slots: core.sample_events(
+            gen, gather_slots(slots)),
+        observe_events=observe_events, apply_events=apply_events,
+        decide_batch=decide_batch, decide_batch_traced=decide_batch_traced,
+        gather_slots=gather_slots,
+        util=lambda slots: _slot_util(slots._replace(
+            alive=gather(slots.alive), cores=gather(slots.cores))),
+        mesh=Mesh(devices, tuple(mesh.axis_names)))

@@ -49,13 +49,13 @@ import torch
 from ..core.belief import GammaBelief
 from ..core.moments import moment_curves_fused
 from ..core.processes import F32, DeploymentParams
-from ..device import resolve_device
+from ..device import canonical_device, resolve_device, visible_devices
 from ..obs.log import get_logger
 from .core import (ArrivalSource, ArrivalStream, SimConfig,
                    draw_arrival_stream, stream_config, tree_to)
 from .metrics import sla_failure_rate, weighted_mean
-from .simulator import (RunMetrics, _one_device, _seed_word, _tree_map,
-                        run_keyed_batch, split_seeds)
+from .simulator import (RunMetrics, _seed_word, _tree_map, run_keyed_batch,
+                        split_seeds)
 
 log = get_logger(__name__)
 
@@ -205,11 +205,21 @@ def _probe_streams(seeds, cfg: SimConfig, device,
                         cfg) for s in seeds])
 
 
-def _probe(seeds, cfg: SimConfig, grid, source, device) -> np.ndarray:
-    """BM of the runs of ``seeds`` ([B] float32), one batch."""
+def _probe(seeds, cfg: SimConfig, grid, source, devices) -> np.ndarray:
+    """BM of the runs of ``seeds`` ([B] float32), one batch: split into
+    contiguous chunks over ``devices`` when B divides their count, else on
+    the first (as the JAX package's probe falls back). A probe's BM does
+    not depend on the probes beside it, so the split changes no bit."""
+    n_dev = len(devices)
+    if n_dev > 1 and len(seeds) % n_dev == 0:
+        per = len(seeds) // n_dev
+        return np.concatenate([
+            _probe(seeds[i * per:(i + 1) * per], cfg, grid, source, [d])
+            for i, d in enumerate(devices)])
+    device = devices[0]
     streams = _probe_streams(seeds, cfg, device, source)
     return _batch_badness([life_generator(s, device) for s in seeds],
-                          streams, cfg, grid)
+                          streams, cfg, grid.to(device))
 
 
 def badness_measure(seed: int, cfg: SimConfig, grid,
@@ -228,7 +238,7 @@ def badness_measure(seed: int, cfg: SimConfig, grid,
     device = resolve_device(device)
     cfg = stream_config(cfg)
     grid = torch.as_tensor(grid, dtype=F32, device=device)
-    return float(_probe([seed], cfg, grid, source, device)[0])
+    return float(_probe([seed], cfg, grid, source, [device])[0])
 
 
 def rejection_q(p: Sequence[float], p_r: Sequence[float]) -> np.ndarray:
@@ -312,8 +322,13 @@ def make_importance_plan(
     source: Optional[ArrivalSource] = None,
     *,
     device="cuda",
+    devices=None,
 ) -> ImportancePlan:
-    """Stratified importance plan over BM buckets, probed on ``device``.
+    """Stratified importance plan over BM buckets, probed on ``device`` (the
+    card unless the caller passes ``"cpu"``), each batch of probes split
+    over ``devices`` (default: the visible devices of ``device``'s kind,
+    ``device.visible_devices``; see ``_probe``). The plan is the same over
+    any number of devices of one kind.
 
     Bucket edges are ``edges_frac * capacity`` (the paper used 25k/30k at
     c = 20k, i.e. 1.25c / 1.5c). Probes ``n_probe`` run seeds derived from
@@ -326,11 +341,13 @@ def make_importance_plan(
     plan's seeds feed ``make_fleet_run`` runs unchanged.
     """
     device = resolve_device(device)
+    devices = (visible_devices(device) if devices is None
+               else [canonical_device(d) for d in devices])
     cfg = stream_config(cfg)
     grid = torch.as_tensor(grid, dtype=F32, device=device)
     seeds = split_seeds(seed, n_probe)
     bm = np.concatenate([
-        _probe(seeds[i:i + probe_batch], cfg, grid, source, device)
+        _probe(seeds[i:i + probe_batch], cfg, grid, source, devices)
         for i in range(0, n_probe, probe_batch)])
     return plan_from_badness(bm, seeds, cfg, quotas, edges_frac)
 
@@ -437,7 +454,6 @@ def simulate_trace_plan(run_fn, plan: TraceEnsemblePlan, streams, policy, *,
     with its trace's pre-built stream (``run_keyed_batch``'s ``streams``).
     Returns per-run metrics in plan order; combine with ``plan.weights``
     via ``estimate_from_plan``."""
-    _one_device(devices)
     streams = _as_list(streams)
     batch = _stack([streams[i] for i in plan.trace_idx])
     return run_keyed_batch(run_fn, [int(s) for s in plan.keys], policy,

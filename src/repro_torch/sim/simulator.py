@@ -28,6 +28,11 @@ step's arithmetic gives each run the bits it gets alone (``sim.core``).
 The loop never reads a device value back to the host, so on the card it
 only enqueues work.
 
+A batch may be split over devices (``run_keyed_batch(..., devices=)``,
+``shard_batch_over_devices``): contiguous chunks of runs, one a device,
+each through a run built for that device; since each run of a batch has
+its bits alone, a split batch equals one batch bit for bit.
+
 **Fleet mode** (paper §2's provider view: dispatch *then* admit):
 ``make_fleet_run`` steps ``FleetConfig.n_clusters`` heterogeneous clusters
 with the same core functions over a cluster axis ([C, S] slot tables,
@@ -44,6 +49,7 @@ generators derived from (the run's seed, c) (``fleet_generators``).
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -53,13 +59,11 @@ from ..core.belief import GammaBelief
 from ..core.moments import MomentCurves
 from ..core.policies import PolicyParams
 from ..core.processes import F32, DeploymentParams, StepEvents
+from ..device import canonical_device, visible_devices
 from .core import (ArrivalSource, ArrivalStream, FleetConfig,
                    PriorArrivalSource, SimConfig, SimState, StepOutcome,
                    _validate_fleet_config, make_admission_core,
                    stream_config, tree_to)
-
-# where a device mesh will be ported
-_ROADMAP_MESH = "is not ported yet: ROADMAP.md, Queue A, item 5 (mesh)"
 
 
 class RunMetrics(NamedTuple):
@@ -163,10 +167,13 @@ def _fleet_metrics(cfg: SimConfig, caps: torch.Tensor, slots: SimState,
 
 
 def _accumulate_step(slots: SimState, out: StepOutcome, n_acc, n_rej,
-                     dt: float):
+                     dt: float, util_end=None):
     """Fold one step's outcome into the slot-table metric accumulators;
-    returns (slots, util_end)."""
-    util_end = torch.sum(slots.cores * slots.alive.to(F32), dim=-1)
+    returns (slots, util_end). ``util_end``, the table's active cores, is
+    summed here unless the caller gives it (a sharded table's, from its
+    core's ``util``); only the scalar leaves of ``slots`` change."""
+    if util_end is None:
+        util_end = torch.sum(slots.cores * slots.alive.to(F32), dim=-1)
     slots = slots._replace(
         core_hours=slots.core_hours + util_end * dt,
         fail_requests=slots.fail_requests + out.failed,
@@ -258,12 +265,6 @@ def split_seeds(seed: int, n_runs: int) -> list:
     return [int(w >> np.uint64(1)) for w in words]
 
 
-def _one_device(devices) -> None:
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            f"a batch over {len(devices)} devices " + _ROADMAP_MESH)
-
-
 def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
              arrival_source: ArrivalSource | None = None,
              record_decisions: bool = False, *, device="cuda"):
@@ -350,20 +351,153 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
             result += (cs.tel,)
         return result if len(result) > 1 else metrics
 
+    return _bound_run(run, device, 0, lambda d: make_run(
+        cfg, horizon_grid, policy_kind, arrival_source, record_decisions,
+        device=d))
+
+
+def _bound_run(run, device, policy_lead: int, on_device):
+    """Mark a run as bound to ``device``: ``run.on_device(d)`` builds the
+    same run on ``d``, and a policy leaf with more than ``policy_lead``
+    axes holds one entry for each run of a batch (0 for ``make_run``; 1
+    for ``make_fleet_run``, whose shared leaves may be [C])."""
+    run.device, run.policy_lead, run.on_device = device, policy_lead, on_device
     return run
+
+
+# a run for each (run, device) a split batch has used: bounded, since each
+# entry holds its run (and through it the run it was built from)
+_SHARDED_RUN_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_SHARDED_RUN_CACHE_MAX = 8
+
+
+def _run_on(run_fn, device: torch.device):
+    """``run_fn`` itself on its own device, else the same run built once
+    for ``device`` (``run_fn.on_device``) and cached: logical devices on
+    one physical device share one run."""
+    own = getattr(run_fn, "device", None)
+    if own is not None and canonical_device(own) == device:
+        return run_fn
+    if getattr(run_fn, "on_device", None) is None:
+        raise ValueError(
+            f"cannot run {run_fn!r} on {device}: a batch split over devices "
+            "takes a make_run or make_fleet_run run")
+    key = (run_fn, device)
+    run = _SHARDED_RUN_CACHE.get(key)
+    if run is None:
+        run = _SHARDED_RUN_CACHE[key] = run_fn.on_device(device)
+        while len(_SHARDED_RUN_CACHE) > _SHARDED_RUN_CACHE_MAX:
+            _SHARDED_RUN_CACHE.popitem(last=False)
+    else:
+        _SHARDED_RUN_CACHE.move_to_end(key)
+    return run
+
+
+def _batch_map(fn, tree, lead: int = 0):
+    """``fn`` over the run axis of a batch argument or output: a list of
+    seeds, or the tensor leaves with more than ``lead`` axes of (nested)
+    tuples; other leaves (shared ones, ``None``) pass as they are."""
+    if isinstance(tree, list):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        parts = [_batch_map(fn, x, lead) for x in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(
+            parts)
+    if isinstance(tree, torch.Tensor) and tree.ndim > lead:
+        return fn(tree)
+    return tree
+
+
+def _pad_batch(args, leads, pad: int):
+    """Pad the run axis of each batch argument (``leads`` as in
+    ``_batch_map``) by repeating its last run ``pad`` times; a generator is
+    repeated as a copy of its state, so no two lanes share one."""
+    def pad_fn(x):
+        if isinstance(x, list):
+            last = x[-1]
+            if isinstance(last, torch.Generator):
+                return x + [torch.Generator(device=last.device).set_state(
+                    last.get_state()) for _ in range(pad)]
+            return x + [last] * pad
+        return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+    if pad == 0:
+        return list(args)
+    return [_batch_map(pad_fn, a, lead) for a, lead in zip(args, leads)]
+
+
+def _cat_outputs(outs, device):
+    """Outputs of the chunks (tensors with a leading run axis, in nested
+    tuples) joined on ``device``."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.cat([x.to(device) for x in outs])
+    parts = [_cat_outputs(xs, device) for xs in zip(*outs)]
+    return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+
+
+def shard_batch_over_devices(batched, devices, batch_args, leads):
+    """``batched(device, *chunk_args)`` on each of ``devices`` in turn, the
+    chunks contiguous slices of the run axis of ``batch_args`` (``leads``
+    as in ``_batch_map``); the outputs (a leading run axis) joined on the
+    first device. The batch size must divide the device count: callers
+    with ragged batches pad first (``_pad_batch``). The counterpart of the
+    JAX package's ``shard_map`` over a 1-d mesh of runs."""
+    n_runs = len(batch_args[0])
+    if n_runs % len(devices):
+        raise ValueError(f"a batch of {n_runs} runs does not split over "
+                         f"{len(devices)} devices: pad it first")
+    per = n_runs // len(devices)
+    outs = []
+    for i, device in enumerate(devices):
+        chunk = [_batch_map(lambda x: x[i * per:(i + 1) * per], a, lead)
+                 for a, lead in zip(batch_args, leads)]
+        outs.append(batched(device, *chunk))
+    return _cat_outputs(outs, devices[0])
+
+
+def _batch_devices(run_fn, devices) -> list:
+    """The devices a batch of ``run_fn`` goes over: ``devices``, or the
+    visible devices of the run's kind (one, for a run that is not bound to
+    a device)."""
+    if devices is None:
+        own = getattr(run_fn, "device", None)
+        return [] if own is None else visible_devices(own.type)
+    return [canonical_device(d) for d in devices]
 
 
 def run_keyed_batch(run_fn, seeds, policy: PolicyParams, *,
                     streams: Optional[ArrivalStream] = None,
                     devices=None) -> RunMetrics:
     """Simulate an explicit batch of R run seeds (or generators) with
-    ``run_fn`` (a ``make_run`` run) in one batched loop; returns
-    ``RunMetrics`` with a leading [R]. ``policy`` is shared (0-d leaves) or
-    one for each run ([R] leaves); ``streams`` (optional) is a stacked [R]
-    batch of ``ArrivalStream``s, one for each run. The port runs on one
-    card: ``devices`` naming more than one raises."""
-    _one_device(devices)
-    return run_fn(list(seeds), policy, stream=streams)
+    ``run_fn`` (a ``make_run`` or ``make_fleet_run`` run); returns its
+    outputs with a leading [R]. ``policy`` is shared or one for each run
+    (leaves [R], or [R, C] for a fleet); ``streams`` (optional) is a
+    stacked [R] batch of ``ArrivalStream``s, one for each run.
+
+    Over more than one device (``devices``; default the visible devices of
+    the run's kind, ``device.visible_devices``) the batch is cut into
+    contiguous chunks, one a device, each run by ``run_fn`` built for that
+    device (``_run_on``; runs never communicate). A batch that does not
+    divide the device count is **padded** by repeating its last run (its
+    policy entry and stream alongside), and the padded runs are sliced off
+    before returning. Each run of a batch gets the bits it gets alone, so
+    the result equals one batch on one device bit for bit."""
+    seeds = list(seeds)
+    devices = _batch_devices(run_fn, devices)
+    if len(devices) <= 1:
+        run = run_fn if not devices else _run_on(run_fn, devices[0])
+        return run(seeds, policy, stream=streams)
+    n_runs = len(seeds)
+    leads = (0, getattr(run_fn, "policy_lead", 0), 0)
+    args = _pad_batch((seeds, policy, streams), leads,
+                      (-n_runs) % len(devices))
+    out = shard_batch_over_devices(
+        lambda d, s, p, st: _run_on(run_fn, d)(s, p, stream=st), devices,
+        args, leads)
+    return _batch_map(lambda x: x[:n_runs], out)
 
 
 def run_batch(run_fn, seed: int, policy: PolicyParams, n_runs: int, *,
@@ -599,4 +733,6 @@ def make_fleet_run(fcfg: FleetConfig, horizon_grid, policy_kind: int,
             result += (cs.tel,)
         return result if len(result) > 1 else metrics
 
-    return run
+    return _bound_run(run, device, 1, lambda d: make_fleet_run(
+        fcfg, horizon_grid, policy_kind, router, arrival_source,
+        record_decisions, device=d))

@@ -21,8 +21,9 @@ evaluated in **one** batched run:
 
 PyTorch counterpart of ``repro.tuning.calibrate``. The JAX package keeps
 compiled, device-sharded evaluators in a cache (``_EVAL_CACHE``); the port
-runs eagerly on one card, so it has nothing to compile or cache, and a
-``devices`` argument naming more than one device raises.
+runs eagerly, so it has nothing to compile, and splits the flat batch over
+``devices`` through ``sim.run_keyed_batch`` (default: the visible devices
+of the run's kind), padding a ragged one.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 
 from ..core.policies import SECOND, ZEROTH, make_policy
 from ..sim.core import ArrivalStream
-from ..sim.simulator import _one_device, _tree_map
+from ..sim.simulator import _tree_map, run_keyed_batch
 
 #: search-space coordinates per policy kind: SECOND tunes the Cantelli rho on
 #: a log10 grid (the feasible range spans ~4 decades); the threshold kinds
@@ -134,8 +135,12 @@ def eval_theta_grid(run_fn, kind: int, thetas, keys, *, capacity: float,
     e.g. ``lambda th: fleet_policy(kind, capacities=caps, rho=th)``, which
     gives [T*R, C] leaves, and ``capacity`` the fleet total; the returned
     ``FleetMetrics`` reshape the same way (``per_cluster`` to [T, R, C]).
+
+    The flat batch goes over ``devices`` (``sim.run_keyed_batch``): a flat
+    batch that does not divide the device count is padded to the next
+    multiple (repeating its last run) and sliced afterwards, never left
+    unsplit; the result equals one batch on one device bit for bit.
     """
-    _one_device(devices)
     thetas = torch.as_tensor(np.asarray(thetas, dtype=np.float32))
     keys = list(keys)
     t_n, r_n = thetas.shape[0], len(keys)
@@ -149,7 +154,8 @@ def eval_theta_grid(run_fn, kind: int, thetas, keys, *, capacity: float,
     if streams is not None:
         streams = _tree_map(
             lambda x: x.repeat((t_n,) + (1,) * (x.ndim - 1)), streams)
-    metrics = run_fn(keys_flat, policy, stream=streams)
+    metrics = run_keyed_batch(run_fn, keys_flat, policy, streams=streams,
+                              devices=devices)
     return _tree_map(lambda x: x.reshape((t_n, r_n) + x.shape[1:]), metrics)
 
 

@@ -18,8 +18,10 @@ the port's own ``make_run``.
   submit/flush front-end, the background pump, observed-event ingestion,
   protocol errors, operating points, window-close idempotence, failing
   flushes, the deadline scheduler, a ticker/pump/submitter stress test, and
-  the options left out (shards, drift), which raise. The fleet mode is
-  tested in ``tests/test_torch_fleet_engine.py``.
+  the options' refusals (``shards=`` without the devices, ``drift`` without
+  the rider). The fleet mode is tested in
+  ``tests/test_torch_fleet_engine.py``, the sharded engine in
+  ``tests/test_torch_mesh.py``.
 """
 import json
 import sys
@@ -565,23 +567,32 @@ def test_naive_lane_refreshes_every_request():
     (dict(shards=2), "item 5"),
     (dict(drift_detector=object()), "item 8"),
 ])
-def test_unported_options_raise(kwargs, match):
-    """Options left out raise ``NotImplementedError`` naming their Queue A
-    item. Item 8's ``drift_detector=`` is ported since
-    (``tests/test_torch_drift.py``): the engine now refuses it only
-    without ``cfg.telemetry``, as the JAX engine does."""
+def test_unported_options_raise(kwargs, match, monkeypatch):
+    """Options once left out, now ported. Item 8's ``drift_detector=``
+    (``tests/test_torch_drift.py``): the engine refuses it only without
+    ``cfg.telemetry``, as the JAX engine does. Item 5's ``shards=`` (the
+    mesh, ``tests/test_torch_mesh.py``): without that many devices it
+    raises, naming the variable that asks for logical ones; with it, the
+    slot table is sharded over them."""
     if match == "item 8":
         with pytest.raises(ValueError, match="telemetry"):
             _engine(PSMALL, **kwargs)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    monkeypatch.delenv("REPRO_TORCH_DEVICE_COUNT", raising=False)
+    with pytest.raises(ValueError, match="REPRO_TORCH_DEVICE_COUNT"):
         _engine(PSMALL, **kwargs)
+    monkeypatch.setenv("REPRO_TORCH_DEVICE_COUNT", str(kwargs["shards"]))
+    eng = _engine(PSMALL, **kwargs)
+    assert eng.n_shards == kwargs["shards"]
+    assert len(eng.core.mesh.devices) == kwargs["shards"]
+    assert eng.metrics_snapshot()["engine"]["n_shards"] == kwargs["shards"]
 
 
 def test_fleet_configuration_raises():
     """A fleet engine is ported (``tests/test_torch_fleet_engine.py``); a
-    fleet with ``shards=`` still raises (the mesh, item 5), and a router
-    without a fleet is refused."""
+    fleet with ``shards=`` is refused, as the JAX engine refuses it (a
+    fleet spreads its state over the cluster axis), and so is a router
+    without a fleet."""
     from repro_torch.core import fleet_policy
     from repro_torch.sim import FleetConfig, LeastUtilizedRouter
 
@@ -590,7 +601,7 @@ def test_fleet_configuration_raises():
     policy = fleet_policy(SECOND, capacities=caps, rho=RHO)
     eng = OnlineAdmissionEngine(fleet, PGRID, SECOND, policy, device="cpu")
     assert eng.fleet and eng.n_c == 2
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="fleet"):
         OnlineAdmissionEngine(fleet, PGRID, SECOND, policy, shards=2,
                               device="cpu")
     with pytest.raises(ValueError, match="FleetConfig"):

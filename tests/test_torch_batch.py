@@ -397,9 +397,15 @@ def test_run_batch_and_run_keyed_batch():
 
 
 def test_batch_over_more_than_one_device_raises():
+    """A batch splits over devices (the mesh, ``tests/test_torch_mesh.py``):
+    over two logical CPU devices it equals one batch; devices the host does
+    not have raise, as every entry point on the card raises without one."""
     cfg, run = _small_run()
     policy = make_policy(SECOND, rho=0.05, capacity=cfg.capacity)
-    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
-        run_keyed_batch(run, [1, 2], policy, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_batch(run, 0, policy, 2, devices=["cuda:0", "cuda:1"])
+    for x, y in zip(run_keyed_batch(run, [1, 2, 3], policy,
+                                    devices=["cpu", "cpu"]),
+                    run([1, 2, 3], policy)):
+        assert torch.equal(x, y)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_batch(run, 0, policy, 2, devices=["cuda:0", "cuda:1"])

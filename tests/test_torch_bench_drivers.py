@@ -9,10 +9,11 @@ package's ``benchmarks/`` at small size, on the CPU.
 * The row formatters: the same numbers give the same strings.
 * ``tuning_bench.run("smoke")``: its K is the JAX package's selection
   (``parse_kcurve_rows`` then ``pick_from_curve``) on the port's rows.
-* ``serve_bench.run("smoke")``: the JAX driver's row names, minus
-  ``sharded``; with the measurements stubbed alike, the same rows. The JAX
+* ``serve_bench.run("smoke")``: the JAX driver's row names, ``sharded``
+  included; with the measurements stubbed alike, the same rows. The JAX
   ``run()`` is never run whole: its ``sharded`` row starts a subprocess
-  with 8 XLA devices.
+  with 8 XLA devices. The port's ``sharded`` row runs in-process, on 8
+  logical devices (``REPRO_TORCH_DEVICE_COUNT``, restored afterwards).
 * The rows with no counterpart raise, naming their ROADMAP items.
 * ``kernels_bench`` on the CPU: the plain rows only; the fused aggregate
   equals the per-slot sum.
@@ -25,6 +26,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
 import sys
 import types
@@ -236,27 +238,27 @@ def bench_with_thetas(tmp_path, monkeypatch):
 def test_serve_bench_rows_equal_the_jax_drivers_but_sharded(
         bench_with_thetas, monkeypatch):
     """Both drivers' ``run`` at the smoke preset with their measurements
-    stubbed alike: the same rows, in the same order, but ``sharded``."""
+    stubbed alike: the same rows, in the same order, ``sharded`` (the
+    mesh) included."""
     jax_serve = _jax_benchmarks("serve_bench")
     monkeypatch.setenv("REPRO_SMOKE", "1")
     _stub_measurements(jax_serve, monkeypatch)
     _stub_measurements(serve_bench, monkeypatch)
     rows = jax_serve.run("tiny")
-    want = [r for r in rows if "/sharded," not in r]
-    assert len(want) == len(rows) - 1
-    assert serve_bench.run("smoke", device="cpu") == want
+    assert sum("/sharded," in r for r in rows) == 1
+    assert serve_bench.run("smoke", device="cpu") == rows
 
 
 def test_serve_bench_smoke_names_and_numbers(bench_with_thetas,
                                              monkeypatch):
     """The port's real ``run("smoke")`` on the CPU: the JAX driver's row
-    names minus ``sharded``, finite numbers, the operating points of the
-    BENCH file's thetas, and no deadline miss counted twice."""
+    names (``sharded`` on 8 logical devices), finite numbers, the operating
+    points of the BENCH file's thetas, and no deadline miss counted
+    twice."""
     jax_serve = _jax_benchmarks("serve_bench")
     monkeypatch.setenv("REPRO_SMOKE", "1")
     _stub_measurements(jax_serve, monkeypatch)
-    want = [r.split(",", 1)[0] for r in jax_serve.run("tiny")
-            if "/sharded," not in r]
+    want = [r.split(",", 1)[0] for r in jax_serve.run("tiny")]
     monkeypatch.delenv("REPRO_SMOKE")
     rows = serve_bench.run("smoke", device="cpu")
     assert [r.split(",", 1)[0] for r in rows] == want
@@ -268,12 +270,17 @@ def test_serve_bench_smoke_names_and_numbers(bench_with_thetas,
         "theta=0.1234 capacity=800")
     m = re.search(r"n=(\d+)", by["serve/smoke/deadline_flush"])
     assert int(m[1]) == 24           # 6 x width 4, every request decided
+    assert by["serve/smoke/sharded"].endswith(" shards=8")
 
 
-def test_rows_without_a_counterpart_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve_bench._measure_sharded("quick", seed=0, width=16, n_ticks=8,
-                                     per_tick=64)
+def test_rows_without_a_counterpart_raise_naming_their_items(monkeypatch):
+    # serve_bench's sharded row has its counterpart now (the mesh): the
+    # engine over 8 logical devices, the variable restored afterwards
+    monkeypatch.setenv("REPRO_TORCH_DEVICE_COUNT", "2")
+    m = serve_bench._measure_sharded("smoke", seed=0, width=4, n_ticks=1,
+                                     per_tick=4, device="cpu")
+    assert m["n_decisions"] == 4 and m["decisions_per_s"] > 0
+    assert os.environ["REPRO_TORCH_DEVICE_COUNT"] == "2"
     with pytest.raises(NotImplementedError, match="item 5 \\(the mesh\\)"):
         bench_run.main(["--only", "roofline", "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown"):

@@ -28,7 +28,10 @@ pump thread launch on the engine's stream), and a small LM on the card
 must match the same LM on the CPU, as must each other architecture's
 reduced config (flash lane forward, decode-kernel decode steps), and one
 train step of each family's reduced config. Both attention kernels also
-run at the families' G = 5, 6, 12 and 48.
+run at the families' G = 5, 6, 12 and 48. The mesh on one card (4 logical
+devices, ``[cuda:0] * 4``): the sharded engine equals the unsharded one bit
+for bit (decisions, every refreshed aggregate, metrics, rider), and a batch
+and a calibration split over the 4 equal them on one.
 """
 import numpy as np
 import pytest
@@ -838,3 +841,84 @@ def test_probe_stream_on_card_is_the_run_stream(card):
         assert torch.equal(x[0], y)
     bm = PI.badness_measure(77, cfg, grid, device=card)
     assert np.isfinite(bm) and bm > 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh on one card: logical devices [cuda:0] * 4
+# ---------------------------------------------------------------------------
+
+def _drive_card_engine(card, cfg, grid, policy, shards):
+    from repro_torch.serve import OnlineAdmissionEngine
+    from repro_torch.sim import draw_arrival_stream
+    from repro_torch.sim.simulator import _steps
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    stream = draw_arrival_stream(gen, cfg)
+    n_arr = stream.n_arrivals.cpu().numpy()
+    eng = OnlineAdmissionEngine(cfg, grid, SECOND, policy, shards=shards,
+                                device=card)
+    refreshed, refresh = [], eng.core.refresh_aggregates
+
+    def recording(cs):
+        cs = refresh(cs)
+        refreshed.append(torch.stack([cs.agg_el, cs.agg_vl]).clone())
+        return cs
+
+    eng.core = eng.core._replace(refresh_aggregates=recording)
+    accept = []
+    for t, slice_t in enumerate(_steps(stream)):
+        eng.tick(gen=gen)
+        accept.append(eng.decide_slice(slice_t, np.arange(4) < n_arr[t]))
+    return np.stack(accept), refreshed, eng.metrics(), eng._cs.tel
+
+
+def test_card_sharded_engine_equals_unsharded(card, monkeypatch):
+    """The slot table over 4 logical devices of the card (the fused lane,
+    which the sharded refresh mirrors; the rider on): decisions, every
+    refreshed aggregate, metrics and rider equal the unsharded engine's bit
+    for bit, with one row launch a tick on the mesh's first device."""
+    monkeypatch.setenv("REPRO_TORCH_DEVICE_COUNT", "4")
+    cfg, grid, policy = _card_engine_case(card, True)
+    cfg = cfg._replace(agg_backend="fused")
+    want = _drive_card_engine(card, cfg, grid, policy, None)
+    K.reset_launches()
+    got = _drive_card_engine(card, cfg, grid, policy, 4)
+    assert K.LAUNCHES["moment_curves_belief"] == cfg.n_steps
+    assert K.LAUNCHES["moment_curves_agg_belief"] == 0
+    np.testing.assert_array_equal(got[0], want[0])
+    assert len(got[1]) == len(want[1]) == cfg.n_steps // 3
+    for x, y in zip(got[1], want[1]):
+        assert torch.equal(x, y)
+    for a, b in zip(got[2:], want[2:]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_card_split_batch_and_calibration_equal_one_device(card):
+    """A ragged batch of 6 runs split over 4 logical devices of the card
+    (padded to 8), and a 3 x 3 calibration grid over them (9 runs padded to
+    12): equal to one device's, bit for bit."""
+    from repro_torch.sim import run_keyed_batch
+    from repro_torch.tuning import calibrate
+
+    cfg = make_config(capacity=500.0, arrival_rate=0.08,
+                      horizon_hours=30 * 24.0, dt=24.0, max_slots=96,
+                      max_arrivals=4, d_points=8, agg_refresh_steps=3)
+    grid = geometric_grid(24.0, 3 * 30 * 24.0, 12)
+    run = make_run(cfg, grid, SECOND, record_decisions=True, device=card)
+    seeds = [3, 1, 4, 1, 5, 9]
+    policy = make_policy(SECOND, rho=[0.05, 0.01, 0.2, 0.3, 0.1, 0.02],
+                         capacity=cfg.capacity)
+    want, got = run(seeds, policy), run_keyed_batch(run, seeds, policy,
+                                                    devices=[card] * 4)
+    assert torch.equal(got[1], want[1])
+    for name in want[0]._fields:
+        assert torch.equal(getattr(got[0], name), getattr(want[0], name))
+    plain = make_run(cfg, grid, SECOND, device=card)
+    kw = dict(capacity=cfg.capacity, tau=5e-3, thetas=[0.3, 0.05, 0.01])
+    one = calibrate(plain, SECOND, [7, 8, 9], devices=[card], **kw)
+    four = calibrate(plain, SECOND, [7, 8, 9], devices=[card] * 4, **kw)
+    assert one.theta == four.theta
+    np.testing.assert_array_equal(one.stages[0].agg_fail,
+                                  four.stages[0].agg_fail)
+    np.testing.assert_array_equal(one.stages[0].util, four.stages[0].util)

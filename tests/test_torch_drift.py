@@ -164,6 +164,7 @@ def test_drift_protocol_meets_reference_criteria():
     """``tests/test_drift.py``'s regret protocol test, at its spec and
     config, on the port's draws."""
     from repro_torch.sim import make_config as p_make_config
+    from repro_torch.sim import make_run
     from repro_torch.traces import drifted_priors
 
     cfg = p_make_config(capacity=800.0, arrival_rate=0.05,
@@ -182,9 +183,18 @@ def test_drift_protocol_meets_reference_criteria():
     assert res.triggered.regret <= res.never.regret + 1e-9
     assert res.within_ci
     assert res.triggered.n_sims <= res.oracle.n_sims
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PU.retune_warm(None, SECOND, [0], capacity=800.0, tau=5e-3,
-                       theta0=0.1, devices=["cuda:0", "cuda:1"])
+    # the warm re-tune's flat batches split over devices (the mesh): the
+    # same result over 3 logical devices as over one
+    run = make_run(cfg, grid, SECOND, device="cpu")
+    keys = [0, 1, 2, 3]
+    warm = [PU.retune_warm(run, SECOND, keys, capacity=800.0, tau=5e-3,
+                           theta0=0.1, n_grid=3, max_stages=1,
+                           devices=devices)
+            for devices in (["cpu"], ["cpu"] * 3)]
+    assert warm[0].theta == warm[1].theta
+    for a, b in zip(warm[0].stages, warm[1].stages):
+        np.testing.assert_array_equal(a.agg_fail, b.agg_fail)
+        np.testing.assert_array_equal(a.util, b.util)
 
 
 # ---------------------------------------------------------------------------

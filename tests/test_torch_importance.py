@@ -225,9 +225,13 @@ def test_trace_plan_runs_on_the_cpu():
                                make_policy(SECOND, rho=0.05,
                                            capacity=CFG.capacity))
     assert m.utilization.shape == (len(plan.keys),)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PI.simulate_trace_plan(run, plan, streams, None,
-                               devices=["cuda:0", "cuda:1"])
+    # split over 2 logical devices (the mesh): the same metrics
+    split = PI.simulate_trace_plan(run, plan, streams,
+                                   make_policy(SECOND, rho=0.05,
+                                               capacity=CFG.capacity),
+                                   devices=["cpu", "cpu"])
+    for x, y in zip(split, m):
+        assert torch.equal(x, y)
 
 
 def test_point_mass_factors_against_float64_oracle():

@@ -21,6 +21,7 @@ from repro.core.processes import sample_step_events
 from repro.sim import SimConfig, draw_arrival_stream, make_admission_core
 from repro.sim.simulator import _accumulate_step, _run_metrics
 from repro_torch import bridge
+from repro_torch.device import Mesh
 from repro_torch.sim import SimConfig as TSimConfig
 from repro_torch.sim import make_admission_core as t_make_admission_core
 from repro_torch.sim import make_run as t_make_run
@@ -207,12 +208,14 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(mesh=object()), "Telemetry, mesh and fleet"),
+    (dict(mesh=Mesh((torch.device("cpu"),) * 2, ("a", "b"))),
+     "exactly one axis"),
 ])
 def test_unported_options_raise(change, match):
-    # the telemetry rider is ported (tests/test_torch_telemetry.py); a
-    # device mesh is not
-    with pytest.raises(NotImplementedError, match=match):
+    # the telemetry rider is ported (tests/test_torch_telemetry.py), and so
+    # is the mesh (tests/test_torch_mesh.py), which refuses what the JAX
+    # package's refuses: here a mesh of two axes
+    with pytest.raises(ValueError, match=match):
         t_make_admission_core(_port_cfg(CFG), np.asarray(GRID), SECOND,
                               device="cpu", **change)
 

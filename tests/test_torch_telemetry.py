@@ -383,11 +383,16 @@ def test_serve_loop_stops_at_a_tick_boundary():
 
 @pytest.mark.parametrize("flag", [["--fleet", "300,200", "--shards", "2"],
                                   ["--shards", "2"]])
-def test_daemon_unported_flags_raise(flag):
-    """``--fleet`` is ported (``tests/test_torch_fleet_engine.py``); a
-    fleet with ``--shards`` still raises (the mesh, item 5)."""
+def test_daemon_unported_flags_raise(flag, monkeypatch):
+    """``--fleet`` and ``--shards`` are ported
+    (``tests/test_torch_fleet_engine.py``, ``tests/test_torch_mesh.py``): a
+    fleet with ``--shards`` is refused, as the JAX daemon refuses it, and
+    ``--shards 2`` without two devices raises, naming the variable that
+    asks for logical ones."""
+    monkeypatch.delenv("REPRO_TORCH_DEVICE_COUNT", raising=False)
     args = D.parse_args(DAEMON_ARGS + ["--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    match = "fleet" if "--fleet" in flag else "REPRO_TORCH_DEVICE_COUNT"
+    with pytest.raises(ValueError, match=match):
         D.build_engine(args)
 
 
