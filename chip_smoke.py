@@ -250,6 +250,28 @@ time:
                the fused lane's old interpolation matmul the same bits at
                every row count. Phase 14's ``serve_bench`` carries the
                ``sharded`` row (8 logical devices).
+ 18. LM mesh — the LM scaffold with ``REPRO_TORCH_DEVICE_COUNT=4`` (set and
+               restored in the phase): llama3.2-1b at full width and depth
+               through ``ServeEngine(mesh=make_host_mesh())`` (1, 4), 4
+               requests, against the unsharded engine, the sharded one
+               following its tokens: float32 tokens equal and logits at
+               1e-4, bf16 the rms gap and the share of equal argmax;
+               ``decode_step(use_kernel=True)`` at full width over a
+               4,096-slot bf16 cache sharded along its sequence (2,048
+               filled, 8 steps, float32 activations) against the unsharded
+               kernel lane at 1e-4, the decode kernel's log-sum-exp form
+               launched once a shard a layer a step (counted from 0);
+               that form against its plain version and timed beside the
+               form without it (the ``decode_gqa_lse`` entry);
+               moonshot-v1-16b-a3b at full width (64 experts, 16 a model
+               rank), depth cut to 4 of 48 layers, float32, with
+               ``moe_local_dispatch``: the forward at capacity factor 8
+               against the global dispatch's at 1e-4 and layer 0's dropped
+               fraction at 1.25; llama3.2-1b trained 3 steps at B 8, S 128
+               over (2, 2) against one device (loss at 2e-4, ms a step,
+               peak memory); the GPipe pipeline on 4 stages against the
+               sequential stack; a reduced train state restored onto
+               (1, 4), (4, 1) and (2, 2) bit for bit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3848,7 +3870,7 @@ def fit_one_batch(state, out):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import make_train_step
 
-    _, model, step_fn, pipe_cfg = T.build(T.parse_args([]))
+    _, model, _, step_fn, pipe_cfg = T.build(T.parse_args([]))
     batch = to_device(make_batch(pipe_cfg, 0), DEVICE)
     holder = [state]
 
@@ -3889,7 +3911,7 @@ def serving_shape_steps(state, out):
 
     def steps(argv, state):
         args = T.parse_args(argv + ["--steps", str(SERVING_STEPS)])
-        _, model, step_fn, pipe_cfg = T.build(args)
+        _, model, _, step_fn, pipe_cfg = T.build(args)
         times, metrics = [], []
         for s in range(SERVING_STEPS):
             batch = to_device(make_batch(pipe_cfg, s), DEVICE)
@@ -4362,6 +4384,478 @@ def mesh_path(records):
     log("phase 17 numbers: " + json.dumps(out, default=float))
 
 
+
+# phase 18: the LM scaffold over 4 logical devices of the card
+LM_MESH_DEVICES = 4
+LM_MESH_REQUESTS = 4
+LM_MESH_DECODE = dict(B=4, slots=4096, filled=2048, steps=8)
+LM_MESH_MOE_LAYERS = 4       # moonshot's depth cut: 4 of its 48 layers
+LM_MESH_MOE_TOKENS = (2, 128)
+LM_MESH_TRAIN = dict(B=8, S=128, steps=3)
+LM_MESH_PIPE = dict(S=4, L=8, D=1024, M=8, MB=16, T=128)
+LM_MESH_TOL = 1e-4           # float32 logits, sharded against unsharded
+LM_MESH_LOSS_RTOL = 2e-4     # tests/test_distribution.py's
+
+
+def lm_mesh_engines(cfg, model, params, dtype, mesh):
+    """The launcher's requests through ``ServeEngine`` over ``mesh`` and
+    unsharded, activations in ``dtype``: the unsharded engine's tokens, and
+    each decode step's logits of both, the sharded engine following the
+    unsharded one's tokens (so that every step is compared even where a
+    bf16 argmax differs). Returns (tokens equal, per-step (sharded logits,
+    unsharded logits), per-step sharded argmax, seconds of each engine)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    model = build_model(dataclasses.replace(cfg, dtype=dtype))
+    args = S.parse_args(["--requests", str(LM_MESH_REQUESTS)])
+
+    class Recording(ServeEngine):
+        def _greedy(self, logits):
+            self.logits.append(logits.float().cpu())
+            return super()._greedy(logits)
+
+    class Following(ServeEngine):
+        def _greedy(self, logits):
+            self.logits.append(logits.float().cpu())
+            self.argmax.append(super()._greedy(logits))
+            return self.script[len(self.logits) - 1]
+
+    out, secs = {}, {}
+    for tag, cls, m in (("plain", Recording, None),
+                        ("sharded", Following, mesh)):
+        engine = cls(model, params, max_batch=args.max_batch,
+                     max_seq=args.max_seq, mesh=m)
+        engine.logits, engine.argmax = [], []
+        if tag == "sharded":
+            engine.script = [lg.argmax(-1).numpy().astype(np.int32)
+                             for lg in out["plain"].logits]
+        reqs = S.make_requests(args, cfg.vocab)
+        for r in reqs:
+            engine.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        engine.reqs = reqs
+        out[tag] = engine
+    plain, sharded = out["plain"], out["sharded"]
+    equal = all(np.array_equal(a, lg.argmax(-1).numpy())
+                for a, lg in zip(sharded.argmax, plain.logits))
+    return (equal, list(zip(sharded.logits, plain.logits)),
+            sum(len(r.out_tokens) for r in plain.reqs), secs)
+
+
+def lm_mesh_decode_kernel(cfg, params, mesh):
+    """Teacher-forced ``decode_step(use_kernel=True)`` at full width over
+    a 4,096-slot bf16 cache, 2,048 slots filled, laid out per
+    ``cache_shardings`` over ``mesh`` (its sequence over the 4 devices)
+    against the unsharded kernel lane on a copy, activations in float32.
+    Returns (largest logit gap, decode kernel launches of the sharded
+    steps counted from 0, ms a step sharded, ms a step unsharded)."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import KVCache
+    from repro_torch.models.spec import Sharded, place_tree
+
+    d = LM_MESH_DECODE
+    model = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    acfg = cfg.attn_config()
+    shape = (d["B"], d["slots"], acfg.n_kv_heads, acfg.head_dim)
+    plain = []
+    for _ in range(cfg.n_layers):
+        k = torch.zeros(shape, dtype=torch.bfloat16, device=DEVICE)
+        v = torch.zeros_like(k)
+        k[:, :d["filled"]] = randn((d["B"], d["filled"], *shape[2:]), gen,
+                                   torch.bfloat16)
+        v[:, :d["filled"]] = randn((d["B"], d["filled"], *shape[2:]), gen,
+                                   torch.bfloat16)
+        plain.append(KVCache(k, v, torch.tensor(d["filled"],
+                                                dtype=torch.int32,
+                                                device=DEVICE)))
+    sharded = place_tree(plain, model.cache_shardings(
+        mesh, d["B"], d["slots"], torch.bfloat16))
+    blocks = sharded[0].k
+    if not (isinstance(blocks, Sharded) and len({b.data_ptr()
+                                                 for b in blocks.blocks})
+            == mesh.size and blocks.blocks[0].shape[1]
+            == d["slots"] // mesh.size):
+        raise AssertionError("the decode cache is not sequence-sharded")
+    tokens = torch.randint(2, cfg.vocab, (d["steps"], d["B"]), generator=gen,
+                           device=DEVICE)
+    gap, ms = 0.0, {"sharded": [], "plain": []}
+    launches = 0
+    for t in range(d["steps"]):
+        torch.cuda.synchronize()
+        DG.reset_launches()
+        t0 = time.perf_counter()
+        got, sharded = model.decode_step(params, tokens[t], sharded, mesh,
+                                         use_kernel=True)
+        torch.cuda.synchronize()
+        ms["sharded"].append(1e3 * (time.perf_counter() - t0))
+        launches += DG.LAUNCHES["decode_gqa_lse"]
+        if DG.LAUNCHES["decode_gqa"]:
+            raise AssertionError("the sharded decode launched the kernel "
+                                 "without its log-sum-exp")
+        t0 = time.perf_counter()
+        want, plain = model.decode_step(params, tokens[t], plain,
+                                        use_kernel=True)
+        torch.cuda.synchronize()
+        ms["plain"].append(1e3 * (time.perf_counter() - t0))
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"sharded decode step {t}: not finite")
+        torch.testing.assert_close(got, want, rtol=LM_MESH_TOL,
+                                   atol=LM_MESH_TOL)
+        gap = max(gap, float((got - want).abs().max()))
+    # layer 0's new K/V come from the same inputs; a later layer's from
+    # hidden states an ulp apart, which bf16 may round a step apart: held
+    # to one bf16 ulp of the cache's largest entry
+    if not torch.equal(sharded[0].k.gather(), plain[0].k):
+        raise AssertionError("layer 0: the sharded cache's K differs from "
+                             "the unsharded one's")
+    for i in range(cfg.n_layers):
+        k_s, k_p = sharded[i].k.gather().float(), plain[i].k.float()
+        rel = float((k_s - k_p).abs().max() / k_p.abs().max())
+        if rel > 2 ** -7:
+            raise AssertionError(f"layer {i}: the sharded cache's K is "
+                                 f"{rel:.3e} of its largest entry off")
+    want_launches = d["steps"] * cfg.n_layers * mesh.size
+    if launches != want_launches:
+        raise AssertionError(f"decode kernel (log-sum-exp form) launched "
+                             f"{launches} times, want {want_launches}: one "
+                             "a shard a layer a step")
+    return (gap, launches, statistics.median(ms["sharded"][1:]),
+            statistics.median(ms["plain"][1:]))
+
+
+def lm_mesh_lse_record(records, launches):
+    """The decode kernel's log-sum-exp form at phase 7's decode shape (B 4,
+    2,048 valid keys of a 4,096-slot bf16 cache, llama3.2-1b's heads):
+    against its plain version, its time beside the form without it (whose
+    output must keep its bits), the bound of its bytes."""
+    import torch
+    from repro_torch.kernels.decode_gqa import kernel as DG
+    from repro_torch.kernels.decode_gqa import ref as DR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    b, slots, valid, h, kvh, dh = 4, 4096, 2048, 32, 8, 64
+    q = randn((b, h, dh), gen, torch.bfloat16)
+    k = randn((b, slots, kvh, dh), gen, torch.bfloat16)
+    v = randn((b, slots, kvh, dh), gen, torch.bfloat16)
+    lens = torch.tensor([valid, 0, 1, slots], dtype=torch.int32,
+                        device=DEVICE)
+    out, lse = DG.decode_gqa_bshd(q, k, v, lens, return_lse=True)
+    want_out, want_lse = DR.decode_gqa_ref(q, k, v, lens, return_lse=True)
+    if not torch.equal(out, DG.decode_gqa_bshd(q, k, v, lens)):
+        raise AssertionError("the output with the log-sum-exp differs from "
+                             "the output without it")
+    if not (bool(torch.isneginf(lse[1]).all())
+            and bool(torch.isfinite(lse[[0, 2, 3]]).all())):
+        raise AssertionError("log-sum-exp: -inf at length 0 and finite "
+                             "elsewhere")
+    torch.testing.assert_close(out, want_out, **DECODE_TOL)
+    finite = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[finite], want_lse[finite], **DECODE_TOL)
+    err = max(float((out - want_out).abs().max()),
+              float((lse[finite] - want_lse[finite]).abs().max()))
+    lens = torch.full((b,), valid, dtype=torch.int32, device=DEVICE)
+    kern = lambda: DG.decode_gqa_bshd(q, k, v, lens, return_lse=True)
+    nbytes = (2 * 2 * b * valid * kvh * dh + 2 * q.numel() + 4 * q.numel()
+              + 4 * b * h)
+    b_ms, b_by = attention_bound(nbytes, 4 * b * h * valid * dh)
+    records["decode_gqa_lse"] = dict(
+        name="decode_gqa_lse", route="cuda",
+        source="src/repro_torch/kernels/decode_gqa/csrc/decode_gqa.cu",
+        replaces="src/repro/kernels/decode_gqa/kernel.py:26",
+        launches=launches, max_abs_err=err, ms=event_ms(kern),
+        plain_ms=event_ms(lambda: DR.decode_gqa_ref(q, k, v, lens,
+                                                    return_lse=True)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_ms=graph_ms(kern),
+        device_ms_without_lse=graph_ms(
+            lambda: DG.decode_gqa_bshd(q, k, v, lens)),
+        shape=dict(B=b, slots=slots, valid=valid, H=h, KVH=kvh, Dh=dh,
+                   dtype="bfloat16"))
+    r = records["decode_gqa_lse"]
+    log(f"decode_gqa with its log-sum-exp at {r['shape']}: {r['ms']:.4f} ms "
+        f"a call ({r['device_ms']:.4f} ms on the device, CUDA graph; "
+        f"without it {r['device_ms_without_lse']:.4f}), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}); max abs err {err:.3e} (output and log-sum-exp, "
+        "lengths 2,048, 0, 1 and 4,096); the output keeps its bits")
+
+
+def lm_mesh_moe(mesh, out):
+    """moonshot-v1-16b-a3b at full width (64 experts, 16 a model rank),
+    ``LM_MESH_MOE_LAYERS`` layers, float32, expert-parallel over ``mesh``:
+    the forward at capacity factor 8 against the global dispatch's, and
+    layer 0's dropped fraction at the config's capacity."""
+    import torch
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import attention, rmsnorm
+
+    full = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full, n_layers=LM_MESH_MOE_LAYERS,
+                              dtype=torch.float32, moe_capacity_factor=8.0)
+    local = build_model(dataclasses.replace(cfg, moe_local_dispatch=True))
+    glob = build_model(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    params = local.init(gen, device=DEVICE)
+    b, s = LM_MESH_MOE_TOKENS
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = local.forward(params, tokens, mesh)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    want = glob.forward(params, tokens)
+    torch.testing.assert_close(got, want, rtol=LM_MESH_TOL, atol=LM_MESH_TOL)
+    gap = float((got - want).abs().max())
+    p = params["layers"][0]
+    x = local._embed(params, tokens)
+    x = x + attention(p["attn"], cfg.attn_config(), rmsnorm(p["ln1"], x))
+    h2 = rmsnorm(p["ln2"], x)
+    drops = {}
+    for cf in (8.0, full.moe_capacity_factor):
+        mcfg = cfg.moe_config()._replace(capacity_factor=cf)
+        drops[cf] = (float(moe_lib.moe_local(p["ffn"], mcfg, h2,
+                                             mesh).dropped_frac),
+                     float(moe_lib.moe(p["ffn"], mcfg, h2).dropped_frac),
+                     moe_lib.capacity(b * s, mcfg))
+    out["moe"] = dict(layers=LM_MESH_MOE_LAYERS, of=full.n_layers,
+                      params=local.n_params(), tokens=b * s, gap=gap,
+                      forward_s=sec, dropped=drops)
+    log(f"moonshot-v1-16b-a3b at full width ({cfg.n_experts} experts top "
+        f"{cfg.moe_top_k}, {cfg.n_experts // mesh.axis_size('model')} a "
+        f"model rank; depth cut to {LM_MESH_MOE_LAYERS} of {full.n_layers} "
+        f"layers, {local.n_params():,} parameters in float32), B {b} S {s}, "
+        f"moe_local_dispatch over {mesh.shape}: forward at capacity factor "
+        f"8 against the global dispatch's, max |diff| {gap:.3e} (limit "
+        f"{LM_MESH_TOL}), {sec:.3f} s; layer 0's dropped fraction "
+        + ", ".join(f"cf {cf}: local {a:.4f}, global {g:.4f} (capacity "
+                    f"{c})" for cf, (a, g, c) in drops.items()))
+
+
+def lm_mesh_train(out):
+    """llama3.2-1b at full width, 3 steps at B 8, S 128 over (2, 2) against
+    the unsharded step from the same state: the loss within 2e-4 each
+    step; ms a step and peak memory of each."""
+    import torch
+    from repro_torch.data.pipeline import PipelineConfig, make_batch, \
+        to_device
+    from repro_torch.device import Mesh, canonical_device
+    from repro_torch.models import build_model, get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.elastic import reshard_in_memory
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t = LM_MESH_TRAIN
+    model = build_model(get_config("llama3.2-1b"))
+    card = canonical_device(DEVICE)
+    mesh = Mesh([card] * 4, ("data", "model"), (2, 2))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=t["steps"])
+    pipe = PipelineConfig(vocab=model.cfg.vocab, seq_len=t["S"],
+                          global_batch=t["B"])
+    batches = [to_device(make_batch(pipe, i), DEVICE)
+               for i in range(t["steps"])]
+    losses, ms, peak = {}, {}, {}
+    for tag, m in (("plain", None), ("sharded", mesh)):
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state = init_train_state(model, gen, device=DEVICE)
+        if m is not None:
+            state = reshard_in_memory(state, model, m)
+        step = make_train_step(model, opt, m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses[tag], ms[tag] = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses[tag].append(float(metrics["loss"]))
+            ms[tag].append(1e3 * (time.perf_counter() - t0))
+        peak[tag] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, step
+        torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(losses["sharded"], losses["plain"])):
+        if not (math.isfinite(a) and abs(a - b) <= LM_MESH_LOSS_RTOL
+                * abs(b)):
+            raise AssertionError(f"train step {i} over (2, 2): loss {a} "
+                                 f"against {b}")
+    out["train"] = dict(losses=losses, ms=ms, peak_gib=peak)
+    log(f"llama3.2-1b at full width, {t['steps']} train steps at B "
+        f"{t['B']}, S {t['S']} (float32 state, bf16 compute, remat) over "
+        f"(2, 2) against one device: losses {losses['sharded']} against "
+        f"{losses['plain']} (limit {LM_MESH_LOSS_RTOL} relative); ms a step "
+        f"{[round(x, 1) for x in ms['sharded']]} against "
+        f"{[round(x, 1) for x in ms['plain']]}; peak memory "
+        f"{peak['sharded']:.2f} GiB against {peak['plain']:.2f} GiB")
+
+
+def lm_mesh_pipeline(out):
+    """The GPipe pipeline on 4 stages of the card's logical devices against
+    the sequential stack: forward and gradients at tests/test_pipeline.py's
+    bounds."""
+    import torch
+    from repro_torch.device import Mesh, canonical_device
+    from repro_torch.train.pipeline import (make_pipeline_forward,
+                                            sequential_reference)
+
+    c = LM_MESH_PIPE
+    mesh = Mesh([canonical_device(DEVICE)] * c["S"], ("stage",), (c["S"],))
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    params = {"w": (torch.randn(c["L"], c["D"], c["D"], generator=gen,
+                                device=DEVICE) * c["D"] ** -0.5
+                    ).requires_grad_(True),
+              "b": (torch.randn(c["L"], c["D"], generator=gen,
+                                device=DEVICE) * 0.1).requires_grad_(True)}
+    x = torch.randn(c["M"], c["MB"], c["T"], c["D"], generator=gen,
+                    device=DEVICE)
+
+    def stage_fn(p, h):
+        for w, b in zip(p["w"], p["b"]):
+            h = torch.tanh(h @ w + b)
+        return h
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = make_pipeline_forward(stage_fn, c["S"], mesh)(params, x)
+    g_got = torch.autograd.grad(got.square().sum(), list(params.values()))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    want = sequential_reference(stage_fn, c["S"], params, x)
+    g_want = torch.autograd.grad(want.square().sum(), list(params.values()))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
+    out["pipeline"] = dict(seconds=sec,
+                           gap=float((got - want).detach().abs().max()))
+    log(f"pipeline over {c['S']} stages ({c['L']} layers of {c['D']}, "
+        f"{c['M']} microbatches of {c['MB']} x {c['T']}): forward max |diff| "
+        f"{out['pipeline']['gap']:.3e} from the sequential stack, gradients "
+        f"within rtol 5e-4 / atol 5e-5; forward and backward {sec:.3f} s")
+
+
+def lm_mesh_restore(out):
+    """A reduced llama3.2-1b train state, saved, restored onto (1, 4),
+    (4, 1) and (2, 2) of the card's logical devices bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.device import Mesh, canonical_device
+    from repro_torch.models import build_model, get_config, reduced_config
+    from repro_torch.models.spec import Sharded, gather, tree_leaves
+    from repro_torch.runtime.elastic import reshard_restore
+    from repro_torch.train.step import init_train_state
+
+    model = build_model(reduced_config(get_config("llama3.2-1b")))
+    state = init_train_state(model, torch.Generator(
+        device=DEVICE).manual_seed(3), compress=True, device=DEVICE)
+    card = canonical_device(DEVICE)
+    path = tempfile.mkdtemp()
+    try:
+        checkpointer.save(path, 5, state)
+        for shape in ((1, 4), (4, 1), (2, 2)):
+            mesh = Mesh([card] * 4, ("data", "model"), shape)
+            got, step = reshard_restore(model, path, mesh, compress=True)
+            leaves = tree_leaves(got)
+            if step != 5 or not all(
+                    torch.equal(gather(a), b.detach())
+                    for a, b in zip(leaves, tree_leaves(state))):
+                raise AssertionError(f"restore onto {shape}: not bit for "
+                                     "bit")
+            n = sum(isinstance(x, Sharded) and len(x.unique()) > 1
+                    for x in leaves)
+            log(f"reduced llama3.2-1b train state (with error feedback) "
+                f"restored onto {shape}: {len(leaves)} leaves bit for bit, "
+                f"{n} of them split over devices")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def lm_mesh_path(records):
+    """Phase 18: the LM scaffold over 4 logical devices of the card."""
+    import os
+
+    import torch
+    from repro_torch.device import DEVICE_COUNT_VAR
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import make_host_mesh
+
+    old = os.environ.get(DEVICE_COUNT_VAR)
+    os.environ[DEVICE_COUNT_VAR] = str(LM_MESH_DEVICES)
+    out = {}
+    try:
+        mesh = make_host_mesh(DEVICE)
+        if mesh.shape != (1, LM_MESH_DEVICES):
+            raise AssertionError(f"host mesh {mesh.shape}")
+        cfg, model, params = S.build(S.parse_args([]))
+        # 1. the engine at full width and depth, float32 then bf16
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            equal, steps, n_tok, secs = lm_mesh_engines(cfg, model, params,
+                                                        dtype, mesh)
+            got = torch.cat([a for a, _ in steps])
+            want = torch.cat([b for _, b in steps])
+            gap, rms, argmax = compare_logits(got, want)
+            out[f"engine_{name}"] = dict(tokens_equal=equal, gap=gap,
+                                         rms=rms, argmax=argmax,
+                                         steps=len(steps), tokens=n_tok,
+                                         seconds=secs)
+            if dtype == torch.float32:
+                if not equal:
+                    raise AssertionError("engine over the mesh: tokens "
+                                         "differ from the unsharded engine")
+                torch.testing.assert_close(got, want, rtol=LM_MESH_TOL,
+                                           atol=LM_MESH_TOL)
+            log(f"ServeEngine(mesh={mesh.shape}) at llama3.2-1b full width "
+                f"and depth, activations {name}, {LM_MESH_REQUESTS} "
+                f"requests, {len(steps)} decode steps, {n_tok} tokens: "
+                f"tokens {'equal to' if equal else 'not all equal to'} the "
+                f"unsharded engine's; logits max |diff| {gap:.3e}, rms gap "
+                f"{rms:.3e}, equal argmax {argmax:.4f}; "
+                f"{secs['sharded']:.2f} s sharded against "
+                f"{secs['plain']:.2f} s")
+        # 2. the kernel lane over the sequence-sharded cache
+        gap, launches, ms_s, ms_p = lm_mesh_decode_kernel(cfg, params, mesh)
+        out["decode_kernel"] = dict(gap=gap, launches=launches,
+                                    ms_sharded=ms_s, ms_plain=ms_p)
+        log(f"decode_step(use_kernel=True) at full width over a "
+            f"{LM_MESH_DECODE['slots']}-slot bf16 cache sharded "
+            f"{LM_MESH_DEVICES} ways along its sequence, "
+            f"{LM_MESH_DECODE['filled']} slots filled, B "
+            f"{LM_MESH_DECODE['B']}, float32 activations: logits max |diff| "
+            f"{gap:.3e} from the unsharded kernel lane (limit "
+            f"{LM_MESH_TOL}); {launches} launches of the log-sum-exp form "
+            f"(one a shard a layer a step); {ms_s:.2f} ms a step against "
+            f"{ms_p:.2f} ms")
+        del model, params
+        torch.cuda.empty_cache()
+        lm_mesh_lse_record(records, launches)
+        # 3. expert-parallel MoE
+        lm_mesh_moe(mesh, out)
+        torch.cuda.empty_cache()
+        # 4. training over (2, 2); 5. the pipeline; 6. elastic restores
+        lm_mesh_train(out)
+        lm_mesh_pipeline(out)
+        lm_mesh_restore(out)
+    finally:
+        if old is None:
+            del os.environ[DEVICE_COUNT_VAR]
+        else:
+            os.environ[DEVICE_COUNT_VAR] = old
+    log("phase 18 numbers: " + json.dumps(out, default=float))
+
+
 def main():
     import torch
 
@@ -4454,6 +4948,9 @@ def main():
 
     with phase("17. the mesh at PAPER_FULL"):
         mesh_path(records)
+
+    with phase("18. the LM scaffold over 4 logical devices"):
+        lm_mesh_path(records)
 
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

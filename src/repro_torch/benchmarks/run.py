@@ -24,8 +24,9 @@ set, else from the JAX package's ``BENCH_<scale>.json``.
 
 PyTorch counterpart of the JAX package's ``benchmarks/run.py``, on
 ``--device`` (the card unless the caller passes ``cpu``). Its ``roofline``
-module reads the TPU dry run's HLO, which needs the mesh (ROADMAP.md,
-Queue A, item 5), and has no counterpart yet.
+module reads the TPU dry run's HLO of the train step on the 512-device
+production mesh, which the port does not lower yet (ROADMAP.md, Queue A,
+item 5, its last slice), and has no counterpart yet.
 """
 from __future__ import annotations
 

@@ -19,9 +19,11 @@
   package stacks a homogeneous model's layers on a leading axis, the port
   keeps a list (``bridge.train_state_to_numpy`` maps one onto the other).
 
-``restore`` puts the leaves on ``device``; restoring against shardings
-(the reference's resharding path onto another mesh) is not ported (ROADMAP
-Queue A, item 5).
+``restore`` puts the leaves on ``device``, or, given ``shardings`` (a tree
+of ``spec.NamedSharding``s leaf for leaf), lays each out over its mesh
+(``spec.put``): the reference's resharding path onto another mesh
+(``runtime.elastic``). A ``spec.Sharded`` leaf is saved whole, so a
+checkpoint does not depend on the mesh it was written from.
 """
 from __future__ import annotations
 
@@ -36,8 +38,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.layers import _ROADMAP_MESH
-from ..models.spec import LEAF_TYPES, Params, tree_leaves
+from ..models.spec import LEAF_TYPES, Params, Sharded, put, tree_leaves
 
 _MAX_SHARD_BYTES = 512 * 1024 * 1024
 
@@ -58,7 +59,10 @@ def _treedef(tree: Any) -> str:
 
 
 def _to_host(x) -> np.ndarray:
-    """A leaf as a numpy array of its own (never a view of the tensor)."""
+    """A leaf as a numpy array of its own (never a view of the tensor); a
+    ``Sharded`` leaf whole."""
+    if isinstance(x, Sharded):
+        x = x.gather("cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -163,7 +167,7 @@ def _unflatten(target: Any, leaves) -> Any:
     ``Params`` leaf keeps the target's ``requires_grad``."""
     if isinstance(target, LEAF_TYPES):
         t = next(leaves)
-        if isinstance(target, nn.Parameter):
+        if isinstance(target, nn.Parameter) and not isinstance(t, Sharded):
             return nn.Parameter(t, requires_grad=target.requires_grad)
         return t
     if target is None:
@@ -183,12 +187,15 @@ def _unflatten(target: Any, leaves) -> Any:
 
 def restore(directory: str, step: int, target_tree: Any,
             shardings: Any = None, device="cuda") -> Any:
-    """Restore into the structure of ``target_tree``, every leaf a tensor
-    on ``device`` (the card unless the caller passes ``"cpu"``)."""
+    """Restore into the structure of ``target_tree`` (real or ``meta``
+    tensors), every leaf a tensor on ``device`` (the card unless the caller
+    passes ``"cpu"``), or laid out per ``shardings`` (same structure; then
+    ``device`` is not read)."""
     if shardings is not None:
-        raise NotImplementedError(
-            f"restoring against shardings is not ported yet: {_ROADMAP_MESH}")
-    device = resolve_device(device)
+        placements = tree_leaves(shardings)
+        device = "cpu"
+    else:
+        device = resolve_device(device)
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -196,10 +203,15 @@ def restore(directory: str, step: int, target_tree: Any,
     if n_target != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"target {n_target}")
+    if shardings is not None and len(placements) != n_target:
+        raise ValueError(f"{len(placements)} shardings for {n_target} "
+                         "leaves")
     leaves = [None] * manifest["n_leaves"]
     for k in range(manifest["n_shards"]):   # a shard at a time in memory
         with np.load(os.path.join(path, f"shard_{k}.npz")) as z:
             for name in z.files:
-                leaves[int(name.split("_")[1])] = _from_host(
-                    z[name]).to(device)
+                i = int(name.split("_")[1])
+                leaves[i] = _from_host(z[name]).to(device)
+                if shardings is not None:
+                    leaves[i] = put(leaves[i], placements[i])
     return _unflatten(target_tree, iter(leaves))

@@ -13,6 +13,7 @@ show is the cost of copies between cards.
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import NamedTuple
 
@@ -73,9 +74,56 @@ def visible_devices(kind="cuda") -> list:
     return [physical[i % len(physical)] for i in range(n)]
 
 
-class Mesh(NamedTuple):
-    """A 1-d device mesh: ``devices`` in mesh order (a device may repeat:
-    logical devices on one physical one) and one axis name."""
-
+class _MeshFields(NamedTuple):
     devices: tuple
     axis_names: tuple
+    shape: tuple
+
+
+class Mesh(_MeshFields):
+    """A device mesh: ``devices`` in row-major mesh order (a device may
+    repeat: logical devices on one physical one), one name a mesh axis and
+    the axes' sizes ``shape`` (``(len(devices),)`` for one axis; with more
+    names and no shape, the last axis takes every device, as the JAX
+    package's ``make_host_mesh`` does). The counterpart of
+    ``jax.sharding.Mesh``: nothing is allocated, so a mesh of ``[cpu] *
+    256`` costs a tuple."""
+
+    def __new__(cls, devices, axis_names, shape=None):
+        devices, axis_names = tuple(devices), tuple(axis_names)
+        if shape is None:
+            shape = (1,) * (len(axis_names) - 1) + (len(devices),)
+        shape = tuple(int(n) for n in shape)
+        if len(shape) != len(axis_names) or math.prod(shape) != len(devices):
+            raise ValueError(f"a mesh of shape {shape} over axes "
+                             f"{axis_names} needs {math.prod(shape)} "
+                             f"devices, got {len(devices)}")
+        return super().__new__(cls, devices, axis_names, shape)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, name: str) -> int:
+        """The size of axis ``name``; 1 for an axis the mesh does not have."""
+        if name not in self.axis_names:
+            return 1
+        return self.shape[self.axis_names.index(name)]
+
+    def coords(self, index: int) -> dict:
+        """{axis: coordinate} of the device at ``index`` (row-major)."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names), reversed(self.shape)):
+            index, out[name] = divmod(index, n)
+        return out
+
+    def index(self, **coords) -> int:
+        """The row-major index of the device at ``coords`` (an axis left
+        out is at 0)."""
+        i = 0
+        for name, n in zip(self.axis_names, self.shape):
+            c = coords.get(name, 0)
+            if not 0 <= c < n:
+                raise ValueError(f"coordinate {name}={c} outside 0..{n - 1}")
+            i = i * n + c
+        return i

@@ -45,7 +45,11 @@
 // order. Nothing goes to device memory but the output: no scratch, no second
 // kernel, no atomics, so the output repeats bit for bit. The cache is read in
 // its [B, S, KVH, Dh] layout through strides. Output acc / max(l, 1e-30); a row
-// of length 0 gives zeros, as the TPU kernel does.
+// of length 0 gives zeros, as the TPU kernel does. On request (a non-null
+// `lse`) the rank that combines a head's first element also stores the
+// head's log-sum-exp over its valid keys, m ln 2 + ln l from the final max and
+// sum it already holds (-inf at length 0): what a caller needs to combine
+// this output with others over other keys (a sequence-sharded cache).
 //
 // Where a KV head serves more than kMaxHeadsPerPass query heads (G = 8 or
 // 16), the kernel runs ceil(G / 4) passes, each its own cluster, and each
@@ -77,6 +81,7 @@ constexpr int kSplits = 8;          // CTAs a cluster: the portable size
 constexpr int kMaxHeadsPerPass = 4;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -85,6 +90,7 @@ struct Args {
   const void* v;
   const int* lengths;
   float* out;
+  float* lse;         // [B, H] log-sum-exp of each head, or null
   int seq, n_heads, group, head_dim, q_bf16;
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale_log2;   // log2(e) / sqrt(Dh)
@@ -572,6 +578,8 @@ decode_cluster_kernel(const Args a) {
       lsum += r_l[r * GP + g] * c;
     }
     out[e] = sum / fmaxf(lsum, 1e-30f);
+    if (a.lse != nullptr && e % dh == 0)
+      a.lse[(long long)b * a.n_heads + h0 + g] = mx * kLn2 + logf(lsum);
   }
 }
 
@@ -666,12 +674,13 @@ int dg_key_tile(int elem_bytes, int head_dim) {
 // through (.sb, .ss, .sh); the head_dim stride of all three is 1, and k/v
 // have 16-byte-aligned base addresses and row strides and rows of a
 // multiple of 16 bytes (the launcher checks). lengths [B] int32 on the
-// device; out [B, H, Dh] float32, contiguous. A cluster of kSplits CTAs
-// serves each (row, KV head, pass of up to 4 heads).
+// device; out [B, H, Dh] float32, contiguous; lse null, or [B, H] float32,
+// contiguous, for each head's log-sum-exp over its valid keys. A cluster of
+// kSplits CTAs serves each (row, KV head, pass of up to 4 heads).
 // q_dtype / kv_dtype: 0 float32, 1 bfloat16. Returns the launch's CUDA
 // error, or cudaGetLastError() after it.
 int dg_forward(const void* q, const void* k, const void* v,
-               const int* lengths, float* out, int batch, int seq,
+               const int* lengths, float* out, float* lse, int batch, int seq,
                int n_heads, int n_kv_heads, int head_dim,
                long long qsb, long long qsh, long long ksb, long long kss,
                long long ksh, long long vsb, long long vss, long long vsh,
@@ -683,6 +692,7 @@ int dg_forward(const void* q, const void* k, const void* v,
   a.v = v;
   a.lengths = lengths;
   a.out = out;
+  a.lse = lse;
   a.seq = seq;
   a.n_heads = n_heads;
   a.group = n_heads / n_kv_heads;

@@ -9,8 +9,11 @@ stream, as clusters of ``N_SPLITS`` = 8 CTAs, or raises. The
 cache is read in its layout through strides (the head_dim stride must be
 1); its 16-byte copies need 16-byte-aligned base addresses and row
 strides, which the launcher checks and refuses rather than copy. Only the
-output is allocated. ``LAUNCHES`` counts the calls that launched the kernel
-(the plain version adds nothing).
+output is allocated. With ``return_lse`` the same launch also stores each
+head's log-sum-exp over its valid keys ([B, H] float32, -inf at length 0),
+which a sequence-sharded cache's combine needs. ``LAUNCHES`` counts the
+calls that launched the kernel, ``"decode_gqa_lse"`` those of the
+log-sum-exp form (the plain version adds nothing).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from .ref import decode_gqa_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_gqa.cu"
 
-LAUNCHES = {"decode_gqa": 0}
+LAUNCHES = {"decode_gqa": 0, "decode_gqa_lse": 0}
 
 MAX_HEAD_DIM = 256
 N_SPLITS = 8        # CTAs a cluster (kSplits in csrc/decode_gqa.cu)
@@ -44,7 +47,7 @@ def reset_launches() -> None:
 def _library() -> ctypes.CDLL:
     """The built library with its C signatures declared (built on first use)."""
     lib = load_library(SOURCE)
-    lib.dg_forward.argtypes = ([_P] * 5 + [_I] * 5 + [_L] * 8
+    lib.dg_forward.argtypes = ([_P] * 6 + [_I] * 5 + [_L] * 8
                                + [ctypes.c_float, _I, _I, _P])
     lib.dg_key_tile.argtypes = [_I, _I]
     lib.dg_max_active_clusters.argtypes = []
@@ -106,11 +109,12 @@ def check_alignment(k, v) -> None:
 
 
 def decode_gqa_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
-    """One decode position of GQA attention over a [B, S, KVH, Dh] cache."""
+                    lengths: torch.Tensor, return_lse: bool = False):
+    """One decode position of GQA attention over a [B, S, KVH, Dh] cache;
+    with ``return_lse`` (out, lse)."""
     _check(q, k, v, lengths)
     if q.device.type == "cpu":
-        return decode_gqa_ref(q, k, v, lengths)
+        return decode_gqa_ref(q, k, v, lengths, return_lse)
     b, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     if dh > MAX_HEAD_DIM:
@@ -120,18 +124,22 @@ def decode_gqa_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}'s head_dim stride must be 1")
     check_alignment(k, v)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0 or s == 0:
-        return out.zero_()
+        return (out.zero_(), lse.fill_(-math.inf)) if return_lse \
+            else out.zero_()
     lib = _library()
     lengths = lengths.contiguous()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dg_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, s, h, kvh, dh, q.stride(0),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, s, h,
+            kvh, dh, q.stride(0),
             q.stride(1), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
             v.stride(1), v.stride(2), 1.0 / math.sqrt(dh), _DTYPES[q.dtype],
             _DTYPES[k.dtype], stream)
     raise_on_error(err, "dg_forward")
-    LAUNCHES["decode_gqa"] += 1
-    return out
+    LAUNCHES["decode_gqa_lse" if return_lse else "decode_gqa"] += 1
+    return (out, lse) if return_lse else out

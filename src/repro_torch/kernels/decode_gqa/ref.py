@@ -6,7 +6,8 @@ arithmetic, which is the TPU kernel's: float32 logits scaled by 1/sqrt(Dh)
 after the dot, keys at or past the row's length masked, p = exp(s - max),
 output (p @ v) / max(sum p, 1e-30). A row of length 0 gives zeros, as the
 TPU kernel does; the JAX package's ``decode_gqa_ref`` gives the mean of v
-there.
+there. With ``return_lse`` it also gives each head's log-sum-exp over its
+valid keys, m + log(sum p) (-inf at length 0), the kernel's optional output.
 
 ``decode_gqa_split_ref`` follows the kernel's partition as well: each of
 ``n_splits`` splits takes its contiguous share of the valid keys (rounded up
@@ -26,9 +27,10 @@ WARPS, UNROLL = 4, 4
 
 
 def decode_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   lengths: torch.Tensor) -> torch.Tensor:
+                   lengths: torch.Tensor, return_lse: bool = False):
     """q: [B, H, Dh]; k/v: [B, S, KVH, Dh]; lengths: [B] valid keys per row.
-    Returns [B, H, Dh] float32."""
+    Returns [B, H, Dh] float32, and with ``return_lse`` also [B, H]
+    float32, each head's log-sum-exp."""
     b, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, kvh, h // kvh, dh)
@@ -40,8 +42,11 @@ def decode_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(logits - m), 0.0)
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(b, h, dh)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (out / l.clamp_min(1e-30)).reshape(b, h, dh)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(b, h)
 
 
 def key_tile(elem_bytes: int, head_dim: int) -> int:

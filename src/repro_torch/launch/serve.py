@@ -8,7 +8,10 @@ Usage (on a card; ``--device cpu`` runs the plain lanes on the CPU):
 (``models.ARCH_NAMES``); ``--reduced`` serves its tiny same-family config.
 
 The weights are drawn from ``--seed`` by the port's own ``init`` (no
-checkpoint is read), as the JAX package's launcher does.
+checkpoint is read), as the JAX package's launcher does, and the engine
+decodes over ``launch.mesh.make_host_mesh`` of ``--device``: one device
+unless ``REPRO_TORCH_DEVICE_COUNT=N`` asks for N logical ones, over which
+the cache's sequence is sharded.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from ..device import resolve_device
 from ..models import ARCH_NAMES, build_model, get_config, reduced_config
 from ..serve.engine import Request, ServeEngine
+from .mesh import make_host_mesh
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -64,7 +68,8 @@ def serve(model, params, args: argparse.Namespace, vocab: int,
     """Answer the launcher's requests; returns (requests, completed,
     seconds)."""
     engine = ServeEngine(model, params, max_batch=args.max_batch,
-                        max_seq=args.max_seq, prefill_mode=prefill_mode)
+                         max_seq=args.max_seq, prefill_mode=prefill_mode,
+                         mesh=make_host_mesh(params["embed"].device))
     reqs = make_requests(args, vocab)
     for r in reqs:
         engine.submit(r)

@@ -1,11 +1,13 @@
 """Training driver: end-to-end loop with checkpointing, fault tolerance and
-a straggler watchdog, the JAX package's ``launch/train.py`` on one device.
+a straggler watchdog, the JAX package's ``launch/train.py``.
 
-Runs real steps on ``--device`` (the card unless ``--device cpu``). The
-weights are drawn from ``--seed`` by the port's own ``init``, on the device
-(nothing is downloaded); a restart restores ``LATEST`` into a freshly built
-state. The reference's host mesh is not ported (ROADMAP Queue A, item 5):
-the step runs on the one device.
+Runs real steps on ``--device`` (the card unless ``--device cpu``) over
+``launch.mesh.make_host_mesh``, as the reference does: one device unless
+``REPRO_TORCH_DEVICE_COUNT=N`` asks for N logical ones, over whose
+``model`` axis the state is then laid out (``train.step.state_shardings``).
+The weights are drawn from ``--seed`` by the port's own ``init``, on the
+device (nothing is downloaded); a restart restores ``LATEST`` into a
+freshly built state, laid out over the mesh.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -26,38 +28,47 @@ from ..data.pipeline import PipelineConfig, Prefetcher
 from ..device import resolve_device
 from ..models import ARCH_NAMES, build_model, get_config, reduced_config
 from ..optim.adamw import AdamWConfig
+from ..runtime.elastic import reshard_in_memory
 from ..runtime.fault_tolerance import (FailureInjector, StragglerWatchdog,
                                        run_with_restarts)
-from ..train.step import init_train_state, make_train_step
+from ..train.step import init_train_state, make_train_step, state_shardings
+from .mesh import make_host_mesh
 
 
 def build(args):
-    """(cfg, model, step_fn, pipe_cfg) of the launcher's arguments."""
+    """(cfg, model, mesh, step_fn, pipe_cfg) of the launcher's arguments."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg)
+    mesh = make_host_mesh(args.device)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps)
-    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches,
+    step_fn = make_train_step(model, opt_cfg, mesh,
+                              microbatches=args.microbatches,
                               compress=args.compress)
     pipe_cfg = PipelineConfig(
         vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.batch,
         frames_dim=cfg.d_model if cfg.family == "audio" else 0,
         enc_seq=cfg.enc_seq if cfg.family == "audio" else 0)
-    return cfg, model, step_fn, pipe_cfg
+    return cfg, model, mesh, step_fn, pipe_cfg
 
 
 def train(args) -> int:
-    cfg, model, step_fn, pipe_cfg = build(args)
+    cfg, model, mesh, step_fn, pipe_cfg = build(args)
     device = resolve_device(args.device)
+    sharded = mesh.size > 1
     ckpt = checkpointer.AsyncCheckpointer(args.ckpt_dir)
     injector = FailureInjector(tuple(args.fail_at))
     watchdog = StragglerWatchdog()
 
     def fresh_state(seed):
         gen = torch.Generator(device=device).manual_seed(seed)
-        return init_train_state(model, gen, compress=args.compress,
-                                device=device)
+        state = init_train_state(model, gen, compress=args.compress,
+                                 device=device)
+        if sharded:
+            state = reshard_in_memory(state, model, mesh,
+                                      compress=args.compress)
+        return state
 
     def loop(_start_hint: int) -> int:
         start = 0
@@ -65,8 +76,12 @@ def train(args) -> int:
         if args.resume or _start_hint != 0:
             latest = checkpointer.latest_step(args.ckpt_dir)
             if latest is not None:
+                shardings = (state_shardings(model, mesh,
+                                             compress=args.compress)
+                             if sharded else None)
                 state = checkpointer.restore(args.ckpt_dir, latest,
-                                             fresh_state(0), device=device)
+                                             fresh_state(0), shardings,
+                                             device=device)
                 start = latest
                 print(f"[train] resumed from step {latest}")
         if state is None:

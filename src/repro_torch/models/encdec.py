@@ -5,6 +5,12 @@ encoder takes precomputed frame embeddings [B, enc_seq, d_model].
 As in the reference: RMSNorm instead of LayerNorm with bias, sinusoidal
 positions on both sides, a non-gated GELU MLP. No attention call here asks
 for the flash kernel: the reference's never do.
+
+Over a ``device.Mesh`` every entry point splits the batch into
+data-parallel ranks (``spec.batch_ranks``), each gathering the weights onto
+its device and computing its rows there; the decoder's self-attention
+caches are laid out per ``cache_shardings`` and written and read shard by
+shard (``layers.attention_decode``), as ``DecoderLM``'s are.
 """
 from __future__ import annotations
 
@@ -17,8 +23,12 @@ from ..device import resolve_device
 from .layers import (AttnConfig, KVCache, _qkv, _sdpa, attention,
                      attention_decode, attention_params, init_kv_cache, mlp,
                      mlp_params, rmsnorm, rmsnorm_params)
-from .lm import _no_mesh, token_nll
-from .spec import P, count_params, init_params
+from .lm import (_cat_rows, _mesh_of, _place_like, _rows,
+                 combine_rank_losses, token_nll)
+from .spec import (P, abstract_params, batch_ranks, count_params, gather,
+                   init_params, local_tree, logical_constraint, map_leaves,
+                   param_shardings, param_specs, place_tree,
+                   shardings_for_tree)
 
 F32 = torch.float32
 
@@ -87,6 +97,16 @@ class EncDecLM:
         return init_params(gen, self.param_descriptors(), dtype,
                            resolve_device(device))
 
+    def abstract_params(self, dtype=torch.float32):
+        """The parameters as ``meta`` tensors (nothing allocated)."""
+        return abstract_params(self.param_descriptors(), dtype)
+
+    def param_specs(self, mesh):
+        return param_specs(self.param_descriptors(), mesh)
+
+    def param_shardings(self, mesh, drop_axes: tuple = ()):
+        return param_shardings(self.param_descriptors(), mesh, drop_axes)
+
     def n_params(self) -> int:
         return count_params(self.param_descriptors())
 
@@ -101,9 +121,18 @@ class EncDecLM:
 
     # -- encoder -------------------------------------------------------------
 
+    def _ranks(self, mesh, batch: int) -> list:
+        return batch_ranks(mesh, batch)
+
     def encode(self, params, frames: torch.Tensor, mesh=None) -> torch.Tensor:
         """frames: [B, S_enc, D] (stub frontend output) -> [B, S_enc, D]."""
-        _no_mesh(mesh)
+        mesh = _mesh_of(mesh)
+        if mesh is not None:
+            outs = [self.encode(local_tree(params, r.device),
+                                frames[r.lo:r.hi].to(r.device))
+                    for r in batch_ranks(mesh, frames.shape[0])]
+            outs = logical_constraint(outs, ("batch", "seq", None), mesh)
+            return torch.cat([o.to(mesh.devices[0]) for o in outs])
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         x = x + sinusoidal(torch.arange(x.shape[1], device=x.device),
@@ -143,7 +172,15 @@ class EncDecLM:
             frames = batch_or_tokens["frames"]
         else:
             tokens = batch_or_tokens
-        enc_out = self.encode(params, frames, mesh)
+        mesh = _mesh_of(mesh)
+        if mesh is not None:
+            outs = [self.forward(local_tree(params, r.device),
+                                 tokens[r.lo:r.hi].to(r.device),
+                                 frames=frames[r.lo:r.hi].to(r.device))
+                    for r in batch_ranks(mesh, tokens.shape[0])]
+            outs = logical_constraint(outs, ("batch", "seq", "vocab"), mesh)
+            return torch.cat([o.to(mesh.devices[0]) for o in outs])
+        enc_out = self.encode(params, frames)
         x, pos = self._start(params, tokens)
         for p in params["decoder"]:
             x = self._dec_block(p, x, enc_out, pos)
@@ -151,10 +188,28 @@ class EncDecLM:
 
     def loss(self, params, batch: dict, mesh=None):
         """Next-token cross entropy over {"tokens", "labels", "frames"};
-        (loss, {"nll", "aux"}) with aux 0, as in the reference."""
-        nll = token_nll(self.forward(params, batch, mesh), batch["labels"])
+        (loss, {"nll", "aux"}) with aux 0, as in the reference. Over a mesh,
+        the ranks' means (``rank_loss``) weighted by their rows, summed in
+        rank order."""
+        mesh = _mesh_of(mesh)
+        if mesh is not None:
+            ranks = batch_ranks(mesh, batch["tokens"].shape[0])
+            return combine_rank_losses(
+                self.cfg, [self.rank_loss(params, batch, mesh, r)
+                           for r in ranks], ranks[0].device)
+        nll = token_nll(self.forward(params, batch), batch["labels"])
         return nll, {"nll": nll,
                      "aux": torch.zeros((), dtype=F32, device=nll.device)}
+
+    def rank_loss(self, params, batch: dict, mesh, rank) -> tuple:
+        """Data-parallel rank ``rank``'s part of ``loss``: its rows' mean
+        nll weighted by its share of the batch, and a zero aux."""
+        n = batch["tokens"].shape[0]
+        rows = {k: v[rank.lo:rank.hi].to(rank.device)
+                for k, v in batch.items()}
+        logits = self.forward(local_tree(params, rank.device), rows)
+        nll = token_nll(logits, rows["labels"]) * ((rank.hi - rank.lo) / n)
+        return nll, torch.zeros((), dtype=F32, device=rank.device)
 
     # -- serving --------------------------------------------------------------
 
@@ -173,13 +228,40 @@ class EncDecLM:
                               length=torch.zeros((), dtype=torch.int32,
                                                  device=device))
 
+    def cache_axes(self) -> "EncDecLM.Cache":
+        cfg = self.cfg
+        kv_axes = KVCache(k=("batch", "kv_seq", "kv_heads", None),
+                          v=("batch", "kv_seq", "kv_heads", None), length=())
+        cross = (("batch", None, "kv_heads", None),) * 2
+        return EncDecLM.Cache(self_kv=[kv_axes] * cfg.n_layers,
+                              cross_kv=[cross] * cfg.n_layers, length=())
+
+    def cache_shardings(self, mesh, batch: int, max_seq: int,
+                        dtype=torch.bfloat16) -> "EncDecLM.Cache":
+        shapes = self.init_cache(batch, max_seq, dtype, device="meta")
+        return shardings_for_tree(shapes, self.cache_axes(), mesh)
+
     def prefill(self, params, tokens, mesh=None, frames=None):
         """Encode and consume the prompt; returns (last logits, cache). The
         self-attention caches are the prompt's bf16 K/V, sized to the
         prompt, as in the reference: the caller pads them for further
-        decoding."""
+        decoding. Over a mesh each rank runs its rows and the cache is laid
+        out per ``cache_axes``."""
+        mesh = _mesh_of(mesh)
+        if mesh is not None:
+            first = mesh.devices[0]
+            parts = [self.prefill(local_tree(params, r.device),
+                                  tokens[r.lo:r.hi].to(r.device),
+                                  frames=frames[r.lo:r.hi].to(r.device))
+                     for r in batch_ranks(mesh, tokens.shape[0])]
+            cache = map_leaves(lambda *xs: _cat_rows(xs, first),
+                               *[c for _, c in parts])
+            cache = place_tree(cache, shardings_for_tree(
+                cache, self.cache_axes(), mesh))
+            logits = torch.cat([lg.to(first) for lg, _ in parts])
+            return logits, cache
         s = tokens.shape[1]
-        enc_out = self.encode(params, frames, mesh)
+        enc_out = self.encode(params, frames)
         x, pos = self._start(params, tokens)
         acfg = self._attn_cfg(True)
         length = torch.tensor(s, dtype=torch.int32, device=x.device)
@@ -206,8 +288,11 @@ class EncDecLM:
         self-attention K/V are written in place; the position is the
         cache's one ``length``. ``use_kernel`` sends the self-attention to
         the GQA decode kernel; the cross-attention goes through
-        ``attention(..., kv=)``, as in the reference."""
-        _no_mesh(mesh)
+        ``attention(..., kv=)``, as in the reference. Over a mesh each rank
+        decodes its rows against the cache ``cache_shardings`` lays out."""
+        mesh = _mesh_of(mesh)
+        if mesh is not None:
+            return self._mesh_decode(params, tokens, cache, mesh, use_kernel)
         cfg = self.cfg
         x = self._embed(params, tokens)[:, None]
         x = x + sinusoidal(cache.length[None], cfg.d_model, cfg.dtype)[None]
@@ -229,3 +314,38 @@ class EncDecLM:
         return logits.to(F32), EncDecLM.Cache(
             self_kv=new_self, cross_kv=cache.cross_kv,
             length=cache.length + 1)
+
+    def _mesh_decode(self, params, tokens, cache, mesh, use_kernel):
+        cfg = self.cfg
+        first = mesh.devices[0]
+        logits, lengths = [], None
+        for r in batch_ranks(mesh, tokens.shape[0]):
+            p_all = local_tree({k: params[k] for k in
+                                ("embed", "final_norm", "lm_head")},
+                               r.device)
+            length = gather(cache.length, r.device)
+            x = self._embed(p_all, tokens[r.lo:r.hi].to(r.device))[:, None]
+            x = x + sinusoidal(length[None], cfg.d_model, cfg.dtype)[None]
+            pos = length.reshape(1, 1).expand(x.shape[0], 1)
+            for p, kv, (ek, ev) in zip(params["decoder"], cache.self_kv,
+                                       cache.cross_kv):
+                p = local_tree(p, r.device)
+                mix, _ = attention_decode(
+                    p["self_attn"], self._attn_cfg(True),
+                    rmsnorm(p["ln1"], x), kv._replace(length=length),
+                    use_kernel=use_kernel, mesh=mesh, row0=r.lo)
+                x = x + mix
+                ek, ev = _rows(ek, r), _rows(ev, r)
+                x = x + attention(p["cross_attn"], self._attn_cfg(False),
+                                  rmsnorm(p["ln_x"], x), pos,
+                                  kv=(ek.to(x.dtype), ev.to(x.dtype)))
+                x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x))
+            hidden = rmsnorm(p_all["final_norm"], x)
+            logits.append(self._logits(p_all, hidden)[:, 0].to(F32))
+            if lengths is None:
+                lengths = (length + 1).to(first)
+        new_self = [kv._replace(length=_place_like(lengths, kv.length))
+                    for kv in cache.self_kv]
+        return torch.cat([lg.to(first) for lg in logits]), EncDecLM.Cache(
+            self_kv=new_self, cross_kv=cache.cross_kv,
+            length=_place_like(lengths, cache.length))

@@ -9,6 +9,13 @@ goes to the flash kernel when asked (``kernels.flash_attention``), single-
 token decode to the GQA decode kernel (``kernels.decode_gqa``); otherwise
 both run the einsum path.
 
+Over a device mesh (``attention_decode(mesh=)``) a KV cache whose sequence
+dim is sharded over ``model`` (a ``spec.Sharded`` placed per
+``DecoderLM.cache_shardings``) is written only in the owning rank's shard
+(``_cache_update``) and read shard by shard, each on its own device, the
+shards' partial softmaxes combined in rank order (flash-decode): no decode
+step gathers a whole cache onto one device.
+
 Types follow JAX's rules. A JAX einsum with ``preferred_element_type=f32``
 on bf16 operands gives a float32 result, so those einsums run on float32
 copies of their operands (bf16 products are exact in float32); where JAX
@@ -24,11 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .spec import P
+from .spec import P, Sharded
 
 F32 = torch.float32
 NEG_INF = -1e30
-_ROADMAP_MESH = "ROADMAP.md, Queue A, item 5 (telemetry, mesh and fleet)"
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -213,57 +219,212 @@ def init_kv_cache(batch: int, max_seq: int, cfg: AttnConfig,
                    length=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _cache_update(cache_arr, new, slot, mesh=None):
+def _owner_write(block, new, slot, s0: int) -> None:
+    """The owner-rank write of the JAX package's sharded cache update on one
+    block holding sequence positions [s0, s0 + S_loc): the local slot
+    clamped into the block, the old entry kept unless the slot falls in
+    it, so that a slot outside every block writes nothing."""
+    s_loc = block.shape[1]
+    ls = slot.to(device=block.device, dtype=torch.long) - s0
+    inb = (ls >= 0) & (ls < s_loc)
+    ls_c = ls.clamp(0, s_loc - 1).reshape(1)
+    old = block.index_select(1, ls_c)
+    block.index_copy_(1, ls_c, torch.where(inb, new.to(block.dtype), old))
+
+
+def _seq_sharded(mesh, size: int) -> bool:
+    """The JAX package's condition for the owner-rank write: a ``model``
+    axis of more than one device that divides the cache's length."""
+    n = mesh.axis_size("model") if mesh is not None else 1
+    return n > 1 and size % n == 0
+
+
+def _cache_update(cache_arr, new, slot, mesh=None, row0: int = 0):
     """Write one token's K/V [B, 1, KVH, Dh] at ``slot`` (a 0-d tensor) of
     cache_arr [B, S, KVH, Dh], IN PLACE, and return cache_arr.
 
-    The slot is clamped to [0, S - 1], as XLA's ``dynamic_update_slice``
-    clamps its start index: a write at S overwrites the last entry, as the
-    JAX package does (ROADMAP Queue C). The write is an ``index_copy_`` with
-    the slot on the device, so no step waits for the host."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a sharded KV cache is not ported yet: {_ROADMAP_MESH}")
+    Without a usable mesh the slot is clamped to [0, S - 1], as XLA's
+    ``dynamic_update_slice`` clamps its start index: a write at S overwrites
+    the last entry, as the JAX package does (ROADMAP Queue C). The write is
+    an ``index_copy_`` with the slot on the device, so no step waits for
+    the host.
+
+    With the sequence dim sharded over ``model`` (the JAX package's
+    ``shard_map`` lane: a ``model`` axis over 1 that divides S) only the
+    rank that owns the slot writes, into its own shard, and a slot at or
+    past S writes nothing, as the JAX package's sharded write does. A
+    ``Sharded`` cache is written block by block on each block's device
+    (every copy of a shard alike); ``new`` then holds the cache's rows
+    ``[row0, row0 + B)``. A plain tensor with such a mesh gets the same
+    owner-rank semantics in one piece."""
+    if isinstance(cache_arr, Sharded):
+        size = cache_arr.shape[1]
+        for i, block in enumerate(cache_arr.blocks):
+            (r0, r1), (s0, s1) = cache_arr.ranges(i)[:2]
+            lo, hi = max(r0, row0), min(r1, row0 + new.shape[0])
+            if lo >= hi:
+                continue
+            part = new[lo - row0:hi - row0].to(block.device)
+            rows = block[lo - r0:hi - r0]
+            if s1 - s0 < size:
+                _owner_write(rows, part, slot, s0)
+            else:
+                ls = slot.to(device=block.device, dtype=torch.long)
+                rows.index_copy_(1, ls.clamp(0, size - 1).reshape(1),
+                                 part.to(block.dtype))
+        return cache_arr
+    rows = (cache_arr if row0 == 0 and new.shape[0] == cache_arr.shape[0]
+            else cache_arr[row0:row0 + new.shape[0]])
+    if _seq_sharded(mesh, cache_arr.shape[1]):
+        _owner_write(rows, new, slot, 0)
+        return cache_arr
     slot = slot.to(torch.long).clamp(0, cache_arr.shape[1] - 1).reshape(1)
-    return cache_arr.index_copy_(1, slot, new.to(cache_arr.dtype))
+    rows.index_copy_(1, slot, new.to(cache_arr.dtype))
+    return cache_arr
+
+
+def _seq_shards(cache_arr: Sharded, lo: int, hi: int) -> list:
+    """(s0, s1, pieces) of each sequence shard of a ``Sharded`` cache, in
+    rank order: ``pieces`` the (block index, r0) of the blocks, first in
+    mesh order, that hold rows [lo, hi) of the shard, in row order (one
+    block when the rows are a data-parallel rank's)."""
+    shards: dict = {}
+    for i in cache_arr.unique():
+        (r0, r1), (s0, s1) = cache_arr.ranges(i)[:2]
+        if r0 < hi and lo < r1:
+            shards.setdefault((s0, s1), []).append((i, r0))
+    return [(s0, s1, sorted(pieces, key=lambda p: p[1]))
+            for (s0, s1), pieces in sorted(shards.items())]
+
+
+def _shard_rows(x: Sharded, pieces: list, lo: int, hi: int):
+    """Rows [lo, hi) of one sequence shard, on its first piece's device:
+    the block's own rows (a view) when one block holds them."""
+    parts = []
+    for i, r0 in pieces:
+        blk = x.blocks[i]
+        parts.append(blk[max(lo - r0, 0):min(hi - r0, blk.shape[0])])
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([t.to(parts[0].device) for t in parts])
+
+
+def _sharded_decode(q, cfg: AttnConfig, cache: KVCache, pos, row0: int,
+                    use_kernel: bool):
+    """Attention of one query a row over a ``Sharded`` cache's sequence
+    shards, each on its own device, combined on q's device in rank order:
+    [B, H, Dh] float32.
+
+    The einsum lane takes each shard's max m_r, sum l_r and unnormalised
+    P.V acc_r (float32, p unrounded; the unsharded lane rounds the
+    normalised p to the cache's dtype, which is float32 in the engine) and
+    combines m = max m_r, out = sum acc_r e^(m_r - m) / sum l_r e^(m_r - m).
+    The kernel lane launches the decode kernel on each shard with its
+    local valid length and its log-sum-exp, and combines the shards'
+    outputs weighted by e^(lse_r - max lse). A shard with no valid key has
+    weight 0."""
+    b = q.shape[0]
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
+    groups = cfg.n_heads // kvh
+    size = cache.k.shape[1]
+    home = q.device
+    parts = []
+    for s0, s1, pieces in _seq_shards(cache.k, row0, row0 + b):
+        kb = _shard_rows(cache.k, pieces, row0, row0 + b)
+        vb = _shard_rows(cache.v, pieces, row0, row0 + b)
+        dev = kb.device
+        qd, pd = q.to(dev), pos.to(dev)
+        if use_kernel:
+            from ..kernels.decode_gqa import ops as dg_ops
+            valid_len = torch.clamp(pd + 1, max=size)
+            local = torch.clamp(valid_len - s0, 0, s1 - s0)
+            out_r, lse_r = dg_ops.decode_gqa(qd[:, 0], kb, vb, local,
+                                             return_lse=True)
+            parts.append((out_r.to(home), lse_r.to(home)))
+            continue
+        qg = qd.reshape(b, kvh, groups, dh)
+        logits = torch.einsum("bhgd,bkhd->bhgk", qg.to(F32),
+                              kb.to(F32)) / math.sqrt(dh)
+        kpos = torch.arange(s0, s1, device=dev)
+        valid = kpos <= pd if cfg.window == 0 else (
+            (kpos <= pd) | (pd >= size))
+        m_r = torch.where(valid, logits, NEG_INF).amax(-1, keepdim=True)
+        p = torch.where(valid, torch.exp(logits - m_r), 0.0)
+        acc_r = torch.einsum("bhgk,bkhd->bhgd", p, vb.to(F32))
+        parts.append((m_r.to(home), p.sum(-1, keepdim=True).to(home),
+                      acc_r.to(home)))
+    if use_kernel:
+        m = torch.stack([lse for _, lse in parts]).amax(0)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        out = l = None
+        for out_r, lse_r in parts:
+            w = torch.exp(lse_r - m)[..., None]
+            out = out_r * w if out is None else out + out_r * w
+            l = w if l is None else l + w
+        return out / l.clamp_min(1e-30)
+    m = torch.stack([m_r for m_r, _, _ in parts]).amax(0)
+    acc = l = None
+    for m_r, l_r, acc_r in parts:
+        c = torch.exp(m_r - m)
+        acc = acc_r * c if acc is None else acc + acc_r * c
+        l = l_r * c if l is None else l + l_r * c
+    return (acc / l).reshape(b, cfg.n_heads, dh)
 
 
 def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, *,
-                     use_kernel: bool = False, mesh=None):
+                     use_kernel: bool = False, mesh=None, row0: int = 0):
     """Single-token decode. x: [B, 1, D]; returns (out [B, 1, D], cache).
 
     With a sliding window the cache is a rolling buffer of size window. The
     new token's K/V are written into ``cache.k`` / ``cache.v`` in place (the
     returned cache shares them; clone the cache first to keep the old one).
     ``use_kernel`` sends the attention to the GQA decode kernel (its plain
-    version on the CPU)."""
+    version on the CPU).
+
+    ``mesh``: with ``cache.k`` / ``cache.v`` ``Sharded`` (x then holds the
+    cache's rows ``[row0, row0 + B)``, a data-parallel rank's), the write
+    goes to the owning shard and each sequence shard is attended on its own
+    device (``_sharded_decode``); with plain tensors the write follows the
+    JAX package's rule for the mesh (``_cache_update``)."""
     b = x.shape[0]
     pos = cache.length
     q, k_new, v_new = _qkv(params, cfg, x, pos.expand(b, 1))
     size = cache.k.shape[1]
     slot = pos % size if cfg.window > 0 else pos
-    k = _cache_update(cache.k, k_new, slot, mesh)
-    v = _cache_update(cache.v, v_new, slot, mesh)
+    k = _cache_update(cache.k, k_new, slot, mesh, row0)
+    v = _cache_update(cache.v, v_new, slot, mesh, row0)
     kvh, dh = cfg.n_kv_heads, cfg.head_dim
     groups = cfg.n_heads // kvh
+    if isinstance(k, Sharded):
+        out = _sharded_decode(q, cfg, KVCache(k, v, pos), pos, row0,
+                              use_kernel)
+        return _decode_out(params, cfg, x, out), KVCache(k=k, v=v,
+                                                         length=pos + 1)
+    kr, vr = ((k, v) if row0 == 0 and b == k.shape[0]
+              else (k[row0:row0 + b], v[row0:row0 + b]))
     if use_kernel:
         from ..kernels.decode_gqa import ops as dg_ops
         valid_len = torch.clamp(pos + 1, max=size)
-        out = dg_ops.decode_gqa(q[:, 0], k, v, valid_len)
+        out = dg_ops.decode_gqa(q[:, 0], kr, vr, valid_len)
     else:
         qg = q.reshape(b, kvh, groups, dh)
         logits = torch.einsum("bhgd,bkhd->bhgk", qg.to(F32),
-                              k.to(F32)) / math.sqrt(dh)
+                              kr.to(F32)) / math.sqrt(dh)
         kpos = torch.arange(size, device=x.device)
         valid = kpos <= pos if cfg.window == 0 else (
             (kpos <= pos) | (pos >= size))
         logits = torch.where(valid, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v.dtype).to(F32),
-                           v.to(F32))
-    out = out.reshape(b, 1, cfg.n_heads, dh).to(x.dtype)
-    proj = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    return proj, KVCache(k=k, v=v, length=pos + 1)
+                           vr.to(F32))
+    return _decode_out(params, cfg, x, out), KVCache(k=k, v=v,
+                                                     length=pos + 1)
+
+
+def _decode_out(params, cfg: AttnConfig, x, out):
+    """The heads' outputs [B, H, Dh] (float32) projected back: [B, 1, D]."""
+    out = out.reshape(x.shape[0], 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,27 @@ Every stack is a list of per-layer ``Params`` here, and the reference's
 homogeneous stack's parameters and caches on a leading layers axis and keeps
 a heterogeneous one (xLSTM) as a list. ``loss`` is the training objective,
 with each block recomputed in the backward pass under ``cfg.remat``.
+
+Over a ``device.Mesh`` (``mesh=`` of ``forward``, ``loss``, ``prefill`` and
+``decode_step``) the batch splits into data-parallel ranks
+(``spec.batch_ranks``), each computing on its rows on its own device. What
+the JAX package leaves to GSPMD is done one way here: leaves stay stored
+per their resolved spec (``param_shardings``, ``cache_shardings``), each
+rank gathers the weight shards a block needs onto its device, computes, and
+drops the gathered copies; a layer's arithmetic is not split over
+``model`` (the compiler's choice in JAX, on which results do not depend).
+The activation is laid out by its logical axes (``logical_constraint``)
+where the ranks' rows are placed and where their logits are joined; within
+a block a rank holds only its rows, which is the layout the JAX package
+constrains its blocks' outputs to.
+The JAX package's explicit per-rank code has its counterparts: the
+sequence-sharded KV cache's owner write and flash-decode
+(``layers.attention_decode``) and expert-parallel dispatch
+(``moe.moe_local_rank`` under ``cfg.moe_local_dispatch``). A MoE model with
+the global dispatch needs every rank's tokens at each MoE layer (its
+routing and capacity are over the whole batch, an all-gather in GSPMD), so
+it computes as one rank with every row. A mesh of one device is the
+unsharded path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,15 +45,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
+from ..device import Mesh, resolve_device
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from . import xlstm as xlstm_lib
-from .layers import (_ROADMAP_MESH, AttnConfig, KVCache, _qkv, _sdpa,
-                     _sdpa_chunked, attention, attention_decode,
-                     attention_params, init_kv_cache, mlp, mlp_params, rmsnorm,
-                     rmsnorm_params)
-from .spec import P, count_params, init_params
+from .layers import (AttnConfig, KVCache, _qkv, _sdpa, _sdpa_chunked,
+                     attention, attention_decode, attention_params,
+                     init_kv_cache, mlp, mlp_params, rmsnorm, rmsnorm_params)
+from .spec import (P, Rank, Sharded, abstract_params, batch_ranks,
+                   count_params, gather, init_params, local_tree,
+                   logical_constraint, map_leaves, param_shardings,
+                   param_specs, place_tree, put, shardings_for_tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +175,16 @@ class DecoderLM:
         return init_params(gen, self.param_descriptors(), dtype,
                            resolve_device(device))
 
+    def abstract_params(self, dtype=torch.float32):
+        """The parameters as ``meta`` tensors (nothing allocated)."""
+        return abstract_params(self.param_descriptors(), dtype)
+
+    def param_specs(self, mesh):
+        return param_specs(self.param_descriptors(), mesh)
+
+    def param_shardings(self, mesh, drop_axes: tuple = ()):
+        return param_shardings(self.param_descriptors(), mesh, drop_axes)
+
     def n_params(self) -> int:
         return count_params(self.param_descriptors())
 
@@ -167,54 +200,85 @@ class DecoderLM:
 
     # -- forward ------------------------------------------------------------
 
-    def _embed(self, params, tokens):
-        # gather, then cast: the same values as the JAX package's cast of
-        # the whole table followed by the gather
-        return params["embed"][tokens.long()].to(self.cfg.dtype)
+    def _embed(self, params, tokens, cast_table: bool = False):
+        """Token embeddings where the table is (a ``Sharded`` table
+        gathered onto the tokens' device). Gather, then cast: the same
+        values as the JAX package's cast of the whole table followed by the
+        gather, which ``cast_table`` (``loss``'s order, for the bf16
+        gradient) keeps."""
+        table = params["embed"]
+        if isinstance(table, Sharded):
+            table = table.gather(tokens.device)
+        tokens = tokens.to(table.device).long()
+        if cast_table:
+            return table.to(self.cfg.dtype)[tokens]
+        return table[tokens].to(self.cfg.dtype)
 
-    def _ffn(self, p, x):
-        """x += the block's feed-forward; (x, MoE aux loss)."""
+    def _ffn(self, p, x, ctx=None):
+        """x += the block's feed-forward; (x, MoE aux loss). ``ctx``: the
+        data-parallel rank over a mesh computing these rows, or None."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.d_ff > 0:
             h2 = rmsnorm(p["ln2"], x)
             if cfg.family == "moe":
-                out = self._moe(p["ffn"], h2)
+                out = (self._moe(p["ffn"], h2) if ctx is None else
+                       self._moe(p["ffn"], h2, ctx.mesh, ctx.rank.coords))
                 x, aux = x + out.y, out.aux_loss
             else:
                 x = x + mlp(p["ffn"], h2)
         return x, aux
 
-    def _block_apply(self, ltype: str, p, x):
-        """One block of the full-sequence forward: (x, MoE aux loss)."""
+    def _mix(self, ltype: str, p, x):
+        """A block's token mixing (attention, SSM, mLSTM or sLSTM) of the
+        full-sequence forward."""
         cfg = self.cfg
         h = rmsnorm(p["ln1"], x)
         if ltype == "attn":
+            return attention(p["attn"], cfg.attn_config(), h,
+                             use_kernel=cfg.use_flash_kernel)
+        if ltype == "hybrid":
             mix = attention(p["attn"], cfg.attn_config(), h,
                             use_kernel=cfg.use_flash_kernel)
-        elif ltype == "hybrid":
-            mix = attention(p["attn"], cfg.attn_config(), h,
-                            use_kernel=cfg.use_flash_kernel)
-            mix = mix + ssm_lib.ssm(p["ssm"], cfg.ssm_config(), h)
-        elif ltype == "mlstm":
-            mix = xlstm_lib.mlstm(p["mlstm"], cfg.xlstm_config(), h)
-        else:  # slstm
-            mix, _ = xlstm_lib.slstm(p["slstm"], cfg.xlstm_config(), h)
-        return self._ffn(p, x + mix)
+            return mix + ssm_lib.ssm(p["ssm"], cfg.ssm_config(), h)
+        if ltype == "mlstm":
+            return xlstm_lib.mlstm(p["mlstm"], cfg.xlstm_config(), h)
+        return xlstm_lib.slstm(p["slstm"], cfg.xlstm_config(), h)[0]
 
-    def _moe(self, p, h, mesh=None):
-        """The MoE layer; expert-parallel dispatch over a mesh raises."""
+    def _block_apply(self, ltype: str, p, x, ctx=None):
+        """One block of the full-sequence forward: (x, MoE aux loss). Over a
+        mesh the rank gathers the block's weights onto its device here, so
+        that under remat the gathered copies are dropped between the
+        passes."""
+        if ctx is not None:
+            p = local_tree(p, ctx.rank.device)
+        return self._ffn(p, x + self._mix(ltype, p, x), ctx)
+
+    def _moe(self, p, h, mesh=None, coords=None):
+        """The MoE layer: expert-parallel over ``mesh`` with
+        ``cfg.moe_local_dispatch`` (``moe_local`` of all of h, or with a
+        data-parallel rank's ``coords`` ``moe_local_rank`` of its rows),
+        else the global dispatch."""
         cfg = self.cfg
         if cfg.moe_local_dispatch and mesh is not None:
-            return moe_lib.moe_local(p, cfg.moe_config(), h, mesh)
+            _check_mesh(mesh)
+            if coords is None:
+                return moe_lib.moe_local(p, cfg.moe_config(), h, mesh)
+            if _local_dispatch(cfg, mesh):
+                return moe_lib.moe_local_rank(p, cfg.moe_config(), h, mesh,
+                                              coords)
         return moe_lib.moe(p, cfg.moe_config(), h)
 
     def _logits(self, params, hidden):
-        head = (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
-        return torch.einsum("bsd,dv->bsv", hidden, head.to(hidden.dtype))
+        """The head (a ``Sharded`` one gathered onto hidden's device)."""
+        tied = self.cfg.tie_embeddings
+        w = params["embed" if tied else "lm_head"]
+        if isinstance(w, Sharded):
+            w = w.gather(hidden.device)
+        return torch.einsum("bsd,dv->bsv", hidden,
+                            (w.T if tied else w).to(hidden.dtype))
 
-    def _backbone(self, params, x, remat: bool = False):
+    def _backbone(self, params, x, remat: bool = False, ctx=None):
         """Embeddings -> final norm: (hidden, the blocks' summed MoE aux
         loss). With ``remat`` each block keeps only its input for the
         backward pass and runs again there, as the JAX package's
@@ -222,18 +286,47 @@ class DecoderLM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for ltype, p in zip(self.layer_types, params["layers"]):
             if remat:
-                x, a = checkpoint(self._block_apply, ltype, p, x,
+                x, a = checkpoint(self._block_apply, ltype, p, x, ctx,
                                   use_reentrant=False)
             else:
-                x, a = self._block_apply(ltype, p, x)
+                x, a = self._block_apply(ltype, p, x, ctx)
             aux = aux + a
-        return rmsnorm(params["final_norm"], x), aux
+        final = params["final_norm"]
+        if ctx is not None:
+            final = local_tree(final, ctx.rank.device)
+        return rmsnorm(final, x), aux
+
+    def _ranks(self, mesh, batch: int) -> list:
+        """The data-parallel ranks of ``batch`` rows over ``mesh``; one rank
+        with every row for a MoE model with the global dispatch."""
+        ranks = batch_ranks(mesh, batch)
+        if (self.cfg.family == "moe" and len(ranks) > 1
+                and not (self.cfg.moe_local_dispatch
+                         and _local_dispatch(self.cfg, mesh))):
+            return [Rank(0, mesh.devices[0], 0, batch, ranks[0].coords)]
+        return ranks
+
+    def _rank_rows(self, params, tokens, mesh, ranks):
+        """Each rank's embedded rows on its device (the activation laid out
+        as ``("batch", "seq", None)``)."""
+        xs = [self._embed(params, tokens[r.lo:r.hi].to(r.device))
+              for r in ranks]
+        return logical_constraint(xs, ("batch", "seq", None), mesh)
 
     def forward(self, params, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
-        """tokens: [B, S] -> logits [B, S, V] in ``cfg.dtype``."""
-        _no_mesh(mesh)
-        hidden, _ = self._backbone(params, self._embed(params, tokens))
-        return self._logits(params, hidden)
+        """tokens: [B, S] -> logits [B, S, V] in ``cfg.dtype`` (over a mesh
+        on the mesh's first device)."""
+        mesh = _mesh_of(mesh)
+        if mesh is None:
+            hidden, _ = self._backbone(params, self._embed(params, tokens))
+            return self._logits(params, hidden)
+        ranks = self._ranks(mesh, tokens.shape[0])
+        out = []
+        for r, x in zip(ranks, self._rank_rows(params, tokens, mesh, ranks)):
+            hidden, _ = self._backbone(params, x, ctx=_Ctx(mesh, r))
+            out.append(self._logits(params, hidden))
+        out = logical_constraint(out, ("batch", "seq", "vocab"), mesh)
+        return torch.cat([o.to(mesh.devices[0]) for o in out])
 
     def loss(self, params, batch: dict, mesh=None) -> tuple:
         """Next-token cross entropy (+ the MoE aux loss at ``moe_aux_coef /
@@ -243,10 +336,20 @@ class DecoderLM:
         The embedding table is cast to ``cfg.dtype`` whole and then
         gathered, in the JAX package's order: the values equal
         ``_embed``'s, and in bf16 the table's gradient accumulates
-        repeated tokens in bf16 as the reference's does."""
-        _no_mesh(mesh)
+        repeated tokens in bf16 as the reference's does.
+
+        Over a mesh each data-parallel rank takes the mean over its rows
+        (``rank_loss``); the ranks' means are weighted by their rows and
+        summed in rank order, and the aux loss is the first rank's (the
+        JAX package's ``moe_local`` returns one replicated value)."""
         cfg = self.cfg
-        x = params["embed"].to(cfg.dtype)[batch["tokens"].long()]
+        mesh = _mesh_of(mesh)
+        if mesh is not None:
+            ranks = self._ranks(mesh, batch["tokens"].shape[0])
+            return combine_rank_losses(
+                cfg, [self.rank_loss(params, batch, mesh, r) for r in ranks],
+                ranks[0].device)
+        x = self._embed(params, batch["tokens"], cast_table=True)
         hidden, aux = self._backbone(
             params, x, remat=cfg.remat and torch.is_grad_enabled())
         nll = token_nll(self._logits(params, hidden), batch["labels"])
@@ -254,6 +357,21 @@ class DecoderLM:
         if cfg.family == "moe":
             loss = loss + cfg.moe_aux_coef * aux / cfg.n_layers
         return loss, {"nll": nll, "aux": aux}
+
+    def rank_loss(self, params, batch: dict, mesh, rank: Rank) -> tuple:
+        """Data-parallel rank ``rank``'s part of ``loss`` over ``mesh``: its
+        rows' mean nll weighted by its share of the batch, and its MoE aux
+        loss; ``params`` the stored tree or the rank's own gathered copy."""
+        cfg = self.cfg
+        n = batch["tokens"].shape[0]
+        x = self._embed(params, batch["tokens"][rank.lo:rank.hi].to(
+            rank.device), cast_table=True)
+        hidden, aux = self._backbone(
+            params, x, remat=cfg.remat and torch.is_grad_enabled(),
+            ctx=_Ctx(mesh, rank))
+        nll = token_nll(self._logits(params, hidden),
+                        batch["labels"][rank.lo:rank.hi].to(rank.device))
+        return nll * ((rank.hi - rank.lo) / n), aux
 
     # -- serving ------------------------------------------------------------
 
@@ -285,15 +403,49 @@ class DecoderLM:
         return [self._layer_cache(t, batch, max_seq, dtype, device)
                 for t in self.layer_types]
 
-    def _block_decode(self, ltype: str, p, x, cache, use_kernel=False):
+    def _layer_cache_axes(self, ltype: str):
+        kv_axes = KVCache(k=("batch", "kv_seq", "kv_heads", None),
+                          v=("batch", "kv_seq", "kv_heads", None), length=())
+        ssm_axes = ssm_lib.SSMCache(h=("batch", "heads", None, None),
+                                    conv=("batch", None, "ssm_inner"))
+        if ltype == "attn":
+            return kv_axes
+        if ltype == "hybrid":
+            return {"attn": kv_axes, "ssm": ssm_axes}
+        if ltype == "mlstm":
+            return xlstm_lib.MLSTMCache(h=("batch", "heads", None, None))
+        return xlstm_lib.SLSTMState(*((("batch", "heads", None),) * 4))
+
+    def cache_axes(self) -> list:
+        """The logical axes of ``init_cache``'s leaves, a layer at a time
+        (the JAX package prepends ``"layers"`` on a stacked stack)."""
+        return [self._layer_cache_axes(t) for t in self.layer_types]
+
+    def cache_shardings(self, mesh, batch: int, max_seq: int,
+                        dtype=torch.bfloat16) -> list:
+        """A ``NamedSharding`` for each leaf of ``init_cache(batch,
+        max_seq)``: the sequence of the attention caches over ``model``
+        (flash-decode), their batch over the data axes."""
+        shapes = self.init_cache(batch, max_seq, dtype, device="meta")
+        return shardings_for_tree(shapes, self.cache_axes(), mesh)
+
+    def _block_decode(self, ltype: str, p, x, cache, use_kernel=False,
+                      ctx=None):
+        """One block of a decode step. ``ctx``: the data-parallel rank over
+        a mesh computing rows ``ctx.rank.lo``.. of the cache; its attention
+        cache is the stored one (sharded, written by its owner rank) and
+        its recurrent state the rank's rows."""
         cfg = self.cfg
+        mesh, row0 = (None, 0) if ctx is None else (ctx.mesh, ctx.rank.lo)
         h = rmsnorm(p["ln1"], x)
         if ltype == "attn":
             mix, new_cache = attention_decode(p["attn"], cfg.attn_config(), h,
-                                              cache, use_kernel=use_kernel)
+                                              cache, use_kernel=use_kernel,
+                                              mesh=mesh, row0=row0)
         elif ltype == "hybrid":
             mix_a, kv = attention_decode(p["attn"], cfg.attn_config(), h,
-                                         cache["attn"], use_kernel=use_kernel)
+                                         cache["attn"], use_kernel=use_kernel,
+                                         mesh=mesh, row0=row0)
             mix_s, sc = ssm_lib.ssm_decode(p["ssm"], cfg.ssm_config(), h,
                                            cache["ssm"])
             mix, new_cache = mix_a + mix_s, {"attn": kv, "ssm": sc}
@@ -308,7 +460,7 @@ class DecoderLM:
                                               wx[:, 0])
             mix = xlstm_lib._slstm_out(p["slstm"], xcfg,
                                        new_cache.h[:, None], x.dtype)
-        x, _ = self._ffn(p, x + mix)
+        x, _ = self._ffn(p, x + mix, ctx)
         return x, new_cache
 
     def decode_step(self, params, tokens: torch.Tensor, cache: list,
@@ -317,8 +469,16 @@ class DecoderLM:
         position. Attention caches' K/V are updated in place; recurrent
         states are new tensors. ``use_kernel`` sends each attention layer to
         the GQA decode kernel (its plain version on the CPU); the JAX
-        package's decode step always takes the einsum lane."""
-        _no_mesh(mesh)
+        package's decode step always takes the einsum lane.
+
+        Over a mesh the cache is the one ``cache_shardings`` lays out
+        (``spec.place_tree``): each rank decodes its rows, writing K/V into
+        the owning shard and attending shard by shard (the kernel lane
+        launches the kernel once a shard a layer), its recurrent state
+        gathered and laid out again; logits on the mesh's first device."""
+        mesh = _mesh_of(mesh)
+        if mesh is not None:
+            return self._mesh_decode(params, tokens, cache, mesh, use_kernel)
         x = self._embed(params, tokens)[:, None]               # [B, 1, D]
         new_cache = []
         for ltype, p, c in zip(self.layer_types, params["layers"], cache):
@@ -326,6 +486,27 @@ class DecoderLM:
             new_cache.append(nc)
         hidden = rmsnorm(params["final_norm"], x)
         return self._logits(params, hidden)[:, 0].to(torch.float32), new_cache
+
+    def _mesh_decode(self, params, tokens, cache, mesh, use_kernel):
+        ranks = self._ranks(mesh, tokens.shape[0])
+        xs = self._rank_rows(params, tokens[:, None], mesh, ranks)
+        states = [[] for _ in ranks]      # each rank's new recurrent states
+        logits = []
+        for j, (r, x) in enumerate(zip(ranks, xs)):
+            ctx = _Ctx(mesh, r)
+            for ltype, p, c in zip(self.layer_types, params["layers"],
+                                   cache):
+                x, nc = self._block_decode(
+                    ltype, local_tree(p, r.device), x,
+                    _rank_cache(c, r), use_kernel, ctx)
+                states[j].append(nc)
+            hidden = rmsnorm(local_tree(params["final_norm"], r.device), x)
+            logits.append(self._logits(params, hidden)[:, 0])
+        first = mesh.devices[0]
+        new_cache = [_join_cache(c, [s[i] for s in states], first)
+                     for i, c in enumerate(cache)]
+        out = torch.cat([o.to(first) for o in logits])
+        return out.to(torch.float32), new_cache
 
     def _prefill_attention(self, p, h, s):
         """The prompt's attention through the einsum path, and its bf16
@@ -348,6 +529,28 @@ class DecoderLM:
         return mix, KVCache(k=kc, v=vc, length=torch.tensor(
             s, dtype=torch.int32, device=h.device))
 
+    def _prefill_block(self, ltype: str, p, x, s: int, ctx=None):
+        """One block of the prompt: (x, the layer's decode cache)."""
+        cfg = self.cfg
+        h = rmsnorm(p["ln1"], x)
+        if ltype in ("attn", "hybrid"):
+            mix, cache = self._prefill_attention(p["attn"], h, s)
+            if ltype == "hybrid":
+                scfg = cfg.ssm_config()
+                mix_s, h_fin, xin = ssm_lib.ssm_mix(p["ssm"], scfg, h)
+                mix = mix + mix_s
+                cache = {"attn": cache, "ssm": ssm_lib.SSMCache(
+                    h=h_fin, conv=xin[:, -(scfg.conv_kernel - 1):]
+                    .to(torch.bfloat16))}
+        elif ltype == "mlstm":
+            mix, h_fin = xlstm_lib.mlstm_mix(p["mlstm"], cfg.xlstm_config(),
+                                             h)
+            cache = xlstm_lib.MLSTMCache(h=h_fin)
+        else:  # slstm
+            mix, cache = xlstm_lib.slstm(p["slstm"], cfg.xlstm_config(), h)
+        x, _ = self._ffn(p, x + mix, ctx)
+        return x, cache
+
     def prefill(self, params, tokens: torch.Tensor, mesh=None):
         """Run the full prompt, build decode caches, return last logits.
 
@@ -358,33 +561,56 @@ class DecoderLM:
         the JAX package, prefill attends through the einsum path (chunked
         when ``attn_chunk`` is set), never the flash kernel, and a decode
         step after an unwindowed prefill writes at slot S of an S-slot
-        cache, which clamps onto the last entry (ROADMAP Queue C)."""
-        _no_mesh(mesh)
-        cfg = self.cfg
+        cache, which clamps onto the last entry (ROADMAP Queue C); over a
+        mesh whose ``model`` axis shards that cache it writes nothing, as
+        the JAX package's sharded write does.
+
+        Over a mesh each rank runs its rows, and the caches are laid out
+        per ``cache_shardings(mesh, B, S)``, ready for ``decode_step``."""
+        mesh = _mesh_of(mesh)
         s = tokens.shape[1]
-        x = self._embed(params, tokens)
-        caches = []
-        for ltype, p in zip(self.layer_types, params["layers"]):
-            h = rmsnorm(p["ln1"], x)
-            if ltype in ("attn", "hybrid"):
-                mix, cache = self._prefill_attention(p["attn"], h, s)
-                if ltype == "hybrid":
-                    scfg = cfg.ssm_config()
-                    mix_s, h_fin, xin = ssm_lib.ssm_mix(p["ssm"], scfg, h)
-                    mix = mix + mix_s
-                    cache = {"attn": cache, "ssm": ssm_lib.SSMCache(
-                        h=h_fin, conv=xin[:, -(scfg.conv_kernel - 1):]
-                        .to(torch.bfloat16))}
-            elif ltype == "mlstm":
-                mix, h_fin = xlstm_lib.mlstm_mix(p["mlstm"],
-                                                 cfg.xlstm_config(), h)
-                cache = xlstm_lib.MLSTMCache(h=h_fin)
-            else:  # slstm
-                mix, cache = xlstm_lib.slstm(p["slstm"], cfg.xlstm_config(), h)
-            x, _ = self._ffn(p, x + mix)
-            caches.append(cache)
-        hidden = rmsnorm(params["final_norm"], x[:, -1:])
-        return self._logits(params, hidden)[:, 0].to(torch.float32), caches
+        if mesh is None:
+            x = self._embed(params, tokens)
+            caches = []
+            for ltype, p in zip(self.layer_types, params["layers"]):
+                x, cache = self._prefill_block(ltype, p, x, s)
+                caches.append(cache)
+            hidden = rmsnorm(params["final_norm"], x[:, -1:])
+            return (self._logits(params, hidden)[:, 0].to(torch.float32),
+                    caches)
+        ranks = self._ranks(mesh, tokens.shape[0])
+        first = mesh.devices[0]
+        logits, rank_caches = [], []
+        for r, x in zip(ranks, self._rank_rows(params, tokens, mesh, ranks)):
+            caches = []
+            for ltype, p in zip(self.layer_types, params["layers"]):
+                x, cache = self._prefill_block(
+                    ltype, local_tree(p, r.device), x, s, _Ctx(mesh, r))
+                caches.append(cache)
+            hidden = rmsnorm(local_tree(params["final_norm"], r.device),
+                             x[:, -1:])
+            logits.append(self._logits(params, hidden)[:, 0])
+            rank_caches.append(caches)
+        caches = map_leaves(
+            lambda *parts: _cat_rows(parts, first), rank_caches[0],
+            *rank_caches[1:])
+        caches = place_tree(caches, shardings_for_tree(
+            caches, self.cache_axes(), mesh))
+        out = torch.cat([o.to(first) for o in logits])
+        return out.to(torch.float32), caches
+
+
+def combine_rank_losses(cfg, parts: list, device) -> tuple:
+    """(loss, {"nll", "aux"}) of the data-parallel ranks' (nll part, aux)
+    pairs: the parts summed in rank order, the first rank's aux."""
+    nll = None
+    for part, _ in parts:
+        nll = part.to(device) if nll is None else nll + part.to(device)
+    aux = parts[0][1].to(device)
+    loss = nll
+    if cfg.family == "moe":
+        loss = loss + cfg.moe_aux_coef * aux / cfg.n_layers
+    return loss, {"nll": nll, "aux": aux}
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -394,7 +620,79 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels.long()[..., None]).mean()
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a device mesh is not ported yet: {_ROADMAP_MESH}")
+@dataclasses.dataclass(frozen=True)
+class _Ctx:
+    """A data-parallel rank of a mesh computing its rows (a plain object,
+    so that ``torch.utils.checkpoint``'s pytree walk of a block's
+    arguments takes it whole)."""
+    mesh: Mesh
+    rank: Rank
+
+
+def _check_mesh(mesh) -> None:
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a device.Mesh, got "
+                        f"{type(mesh).__name__}")
+
+
+def _mesh_of(mesh):
+    """The mesh to shard over: None without one or for a mesh of one device
+    (the unsharded path, which such a mesh is in the JAX package too)."""
+    if mesh is None:
+        return None
+    _check_mesh(mesh)
+    return mesh if mesh.size > 1 else None
+
+
+def _local_dispatch(cfg, mesh) -> bool:
+    """Whether ``moe_local`` shards over ``mesh`` (else it falls back to the
+    global dispatch, as the JAX package's does)."""
+    n = mesh.axis_size("model")
+    return n > 1 and cfg.n_experts % n == 0
+
+
+def _rows(x, rank: Rank):
+    """Rows [lo, hi) of a cache leaf on the rank's device (a 0-d leaf
+    whole)."""
+    if x.ndim == 0:
+        return gather(x, rank.device)
+    if isinstance(x, Sharded):
+        return x.gather(rank.device, rows=(rank.lo, rank.hi))
+    return x[rank.lo:rank.hi].to(rank.device)
+
+
+def _rank_cache(cache, rank: Rank):
+    """A layer's cache as rank ``rank`` decodes it: attention K/V as they
+    are stored (``attention_decode`` writes and reads their shards), the
+    position on the rank's device, recurrent states the rank's rows."""
+    if isinstance(cache, KVCache):
+        return cache._replace(length=gather(cache.length, rank.device))
+    if isinstance(cache, dict):
+        return {k: _rank_cache(v, rank) for k, v in cache.items()}
+    return map_leaves(lambda x: _rows(x, rank), cache)
+
+
+def _cat_rows(parts, device):
+    """The ranks' rows of a leaf joined on ``device`` (a 0-d leaf is the
+    first rank's)."""
+    if parts[0].ndim == 0:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts])
+
+
+def _join_cache(old, parts: list, device):
+    """A layer's new cache from the ranks' ``parts``, laid out as ``old``:
+    the attention K/V are ``old``'s (written in place), lengths and
+    recurrent states joined by rows and placed as before."""
+    if isinstance(old, KVCache):
+        return old._replace(length=_place_like(
+            parts[0].length.to(device), old.length))
+    if isinstance(old, dict):
+        return {k: _join_cache(old[k], [p[k] for p in parts], device)
+                for k in old}
+    return map_leaves(lambda o, *ps: _place_like(_cat_rows(ps, device), o),
+                      old, *parts)
+
+
+def _place_like(x, like):
+    return put(x, like.sharding) if isinstance(like, Sharded) else x

@@ -22,6 +22,11 @@ gathers the assignment that fills it) and the combine (the reference's
 back to a [T, k] layout through the inverse of the sort, in ascending expert
 order as the reference's scatter visits them, and summed left to right).
 No float atomics, so a forward's bits do not vary from run to run.
+
+``moe_local`` is the reference's expert-parallel dispatch over a device
+mesh (its ``shard_map`` lane): each ``model`` rank routes a data-parallel
+rank's tokens to the experts it owns, on its own device, and the ranks'
+outputs are summed in rank order (the ``psum``).
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _ROADMAP_MESH
-from .spec import P
+from ..device import Mesh
+from .spec import P, Sharded, batch_ranks, gather
 
 F32 = torch.float32
 
@@ -155,14 +160,9 @@ def moe(params, cfg: MoEConfig, x: torch.Tensor) -> MoEOut:
                           yf[dp.buf_idx.clamp(max=e * cap - 1)]
                           * sorted_gate[:, None].to(x.dtype),
                           torch.zeros((), dtype=x.dtype, device=x.device))
-    # each token's k sorted positions, ascending: its contributions in the
-    # order the reference's scatter-add visits them (ascending expert)
-    inverse = torch.empty_like(dp.order)
-    inverse[dp.order] = torch.arange(t * k, device=x.device)
-    slots = torch.sort(inverse.reshape(t, k), dim=1).values
-    y = contrib[slots[:, 0]]
-    for j in range(1, k):
-        y = y + contrib[slots[:, j]]
+    # each token's k contributions in the order the reference's
+    # scatter-add visits them (ascending expert)
+    y = _combine(contrib, dp.order, t, k)
     # a division by a tensor: CUDA multiplies by the reciprocal of a Python
     # number, which is an ulp off the reference's 1 - n / (T k)
     dropped = 1.0 - torch.sum(dp.keep.to(F32)) / torch.tensor(
@@ -170,8 +170,108 @@ def moe(params, cfg: MoEConfig, x: torch.Tensor) -> MoEOut:
     return MoEOut(y=y.reshape(b, s, d), aux_loss=aux, dropped_frac=dropped)
 
 
+def _combine(contrib: torch.Tensor, order: torch.Tensor, t: int,
+             k: int) -> torch.Tensor:
+    """y [T, D]: each token's k contributions (in sorted order ``order``)
+    summed left to right in ascending sorted position, the order in which
+    the reference's scatter-add visits them."""
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(t * k, device=order.device)
+    slots = torch.sort(inverse.reshape(t, k), dim=1).values
+    y = contrib[slots[:, 0]]
+    for j in range(1, k):
+        y = y + contrib[slots[:, j]]
+    return y
+
+
+def _expert_slice(w, lo: int, hi: int, device) -> torch.Tensor:
+    """Experts [lo, hi) of an [E, ...] weight, whole in its other dims, on
+    ``device`` (a ``Sharded`` weight gathers only the blocks that hold
+    them)."""
+    if isinstance(w, Sharded):
+        return w.gather(device, rows=(lo, hi))
+    return w[lo:hi].to(device)
+
+
+def moe_local_rank(params, cfg: MoEConfig, x: torch.Tensor, mesh,
+                   coords: dict) -> MoEOut:
+    """One data-parallel rank of ``moe_local``: x [b, s, D], its tokens, on
+    the rank's device; ``coords`` its coordinates on the batch axes. Model
+    rank m (the device at ``coords`` and model = m) routes the tokens to its
+    experts [m e_loc, (m + 1) e_loc): the reference's stable sort by local
+    expert with the drop bucket e_loc for tokens routed elsewhere, its
+    capacity max(1, round(t k / E cf)) of the local token count t, its
+    buffer and combine. The ranks' outputs and dropped counts are summed in
+    rank order on x's device."""
+    n_model = mesh.axis_size("model")
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = e // n_model
+    b, s, d = x.shape
+    t = b * s
+    home = x.device
+    xf = x.reshape(t, d)
+    probs, gate, expert_idx = route(
+        {"router": gather(params["router"], home)}, cfg, xf)
+    aux = aux_loss(probs, expert_idx, cfg)
+    cap = capacity(t, cfg)
+    y = n_drop = None
+    for m in range(n_model):
+        dev = mesh.devices[mesh.index(**coords, model=m)]
+        lo = m * e_loc
+        flat_e = expert_idx.reshape(-1).to(dev)
+        flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+        is_local = (flat_e >= lo) & (flat_e < lo + e_loc)
+        le = torch.where(is_local, flat_e - lo, e_loc)
+        order = torch.argsort(le, stable=True)
+        se, st = le[order], flat_t[order]
+        counts = torch.bincount(le, minlength=e_loc + 1)
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(t * k, device=dev) - starts[se]
+        keep = (pos < cap) & (se < e_loc)
+        buf_idx = torch.where(keep, se * cap + pos, e_loc * cap)
+        xd = xf.to(dev)
+        c = torch.arange(cap, device=dev)
+        src = (starts[:e_loc, None] + c).clamp(max=t * k - 1)
+        filled = c < counts[:e_loc, None]
+        zero = torch.zeros((), dtype=x.dtype, device=dev)
+        buf = torch.where(filled[..., None], xd[st[src]], zero)
+        wg, wi, wo = (_expert_slice(params[n], lo, lo + e_loc, dev).to(
+            x.dtype) for n in ("w_gate", "w_in", "w_out"))
+        gt = torch.einsum("ecd,edf->ecf", buf, wg)
+        up = torch.einsum("ecd,edf->ecf", buf, wi)
+        y_e = torch.einsum("ecf,efd->ecd", F.silu(gt) * up, wo)
+        yf = y_e.reshape(e_loc * cap, d)
+        sg = gate.reshape(-1).to(dev)[order]
+        contrib = torch.where(keep[:, None],
+                              yf[buf_idx.clamp(max=e_loc * cap - 1)]
+                              * sg[:, None].to(x.dtype), zero)
+        y_m = _combine(contrib, order, t, k).to(home)
+        drop_m = torch.sum((~keep & is_local[order]).to(F32)).to(home)
+        y = y_m if y is None else y + y_m
+        n_drop = drop_m if n_drop is None else n_drop + drop_m
+    dropped = n_drop / torch.tensor(float(t * k), device=home)
+    return MoEOut(y=y.reshape(b, s, d), aux_loss=aux, dropped_frac=dropped)
+
+
 def moe_local(params, cfg: MoEConfig, x: torch.Tensor, mesh) -> MoEOut:
-    """The reference's expert-parallel dispatch over a device mesh."""
-    raise NotImplementedError(
-        f"expert-parallel MoE dispatch over a mesh is not ported yet: "
-        f"{_ROADMAP_MESH}")
+    """The reference's expert-parallel MoE over ``mesh`` (a
+    ``device.Mesh``): x [B, S, D] split into its data-parallel ranks' rows
+    (``spec.batch_ranks``), each through ``moe_local_rank``; y the ranks'
+    rows on x's device. As the reference's ``shard_map`` returns one
+    replicated value of what differs over data ranks, ``aux_loss`` and
+    ``dropped_frac`` are the first rank's. Falls back to ``moe`` where the
+    reference does: no ``model`` axis over 1, or experts that do not
+    divide over it."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a device.Mesh, got "
+                        f"{type(mesh).__name__}")
+    n_model = mesh.axis_size("model")
+    if n_model <= 1 or cfg.n_experts % n_model != 0:
+        return moe(params, cfg, x)
+    outs = [moe_local_rank(params, cfg, x[r.lo:r.hi].to(r.device), mesh,
+                           r.coords)
+            for r in batch_ranks(mesh, x.shape[0])]
+    y = torch.cat([o.y.to(x.device) for o in outs])
+    return MoEOut(y=y, aux_loss=outs[0].aux_loss.to(x.device),
+                  dropped_frac=outs[0].dropped_frac.to(x.device))
+

@@ -7,6 +7,12 @@ JAX package's tree), and its int32 step. Every division that the reference
 writes with a Python number divides by a tensor here: a CUDA division by a
 host scalar multiplies by its reciprocal, an ulp off IEEE division, where a
 tensor divisor divides on both devices.
+
+A state laid out over a mesh (``train.step.state_shardings``) has
+``spec.Sharded`` leaves: the global norm sums each distinct block's sum of
+squares, leaf after leaf and block after block in mesh order, on the first
+leaf's device, and every block (each copy of a replicated one too) is
+updated on its own device with the same arithmetic.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from ..models.spec import tree_leaves
+from ..models.spec import Sharded, gather, put, tree_leaves
 
 F32 = torch.float32
 
@@ -64,12 +70,22 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (of a ``Sharded`` leaf, its distinct blocks' sums in mesh order)."""
     leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=F32, device=leaves[0].device)
+    home = leaves[0].device
+    total = torch.zeros((), dtype=F32, device=home)
     for g in leaves:
-        total = total + torch.sum(g.to(F32) ** 2)
+        if isinstance(g, Sharded):
+            for i in g.unique():
+                total = total + torch.sum(g.blocks[i].to(F32) ** 2).to(home)
+        else:
+            total = total + torch.sum(g.to(F32) ** 2)
     return torch.sqrt(total)
+
+
+def _blocks(x) -> tuple:
+    return x.blocks if isinstance(x, Sharded) else (x,)
 
 
 @torch.no_grad()
@@ -94,22 +110,36 @@ def apply_updates(
     # torch (``Tensor.__rtruediv__``): divide explicitly
     scale = torch.clamp(torch.div(_f32(cfg.clip_norm, gnorm), gnorm + 1e-9),
                         max=1.0)
-    grads = [g.to(F32) * scale for g in grads]
     if compress is not None:
-        grads = compress(grads)
+        grads = compress([g.to(F32) * scale for g in grads])
+        scale = torch.ones((), dtype=F32, device=scale.device)
 
-    step = state.step + 1
+    step = gather(state.step) + 1
     lr = schedule(cfg, step)
     sf = step.to(F32)
     b1c = 1.0 - torch.pow(_f32(cfg.b1, sf), sf)
     b2c = 1.0 - torch.pow(_f32(cfg.b2, sf), sf)
 
     for p, m, v, g in zip(leaves, state.m, state.v, grads):
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        p32 = p.to(F32)
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-            + cfg.weight_decay * p32
-        p.copy_((p32 - lr * delta).to(p.dtype))
+        blocks = [_blocks(x) for x in (p, m, v, g)]
+        if len({len(b) for b in blocks}) != 1:
+            raise ValueError("a parameter, its moments and its gradient must "
+                             "share one layout")
+        for pb, mb, vb, gb in zip(*blocks):
+            dev = pb.device
+            _update(cfg, pb, mb, vb, gb.to(F32) * scale.to(dev), lr.to(dev),
+                    b1c.to(dev), b2c.to(dev))
+    if isinstance(state.step, Sharded):
+        step = put(step, state.step.sharding)
     return params, OptState(state.m, state.v, step), {
         "grad_norm": gnorm, "lr": lr}
+
+
+def _update(cfg: AdamWConfig, p, m, v, g, lr, b1c, b2c) -> None:
+    """One parameter's (or block's) moments and value, in place."""
+    m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+    v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+    p32 = p.to(F32)
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+        + cfg.weight_decay * p32
+    p.copy_((p32 - lr * delta).to(p.dtype))

@@ -7,6 +7,11 @@ that the noise does not bias training (Karimireddy et al., 2019).
 ``torch.round`` rounds half to even, as ``jnp.round`` does, and the block
 scale divides by a tensor (see ``adamw``), so the round trip equals the
 reference's bit for bit on the CPU.
+
+The 256-element blocks run over a leaf's whole flat order, and a block of a
+leaf split on a later dim is not contiguous in it: a ``spec.Sharded``
+gradient is quantized whole, in the global order (gathered, then laid out
+again as it was, with its error feedback).
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..models.spec import tree_leaves
+from ..models.spec import Sharded, gather, put, tree_leaves
 
 BLOCK = 256
 
@@ -46,9 +51,14 @@ def _quantize_dequantize(g: torch.Tensor) -> torch.Tensor:
 def compress_with_feedback(grads: Any, ef: ErrorFeedback
                            ) -> tuple[list, ErrorFeedback]:
     """grads + residual -> int8 round trip; the new residual is the
-    quantization error."""
-    corrected = [g.to(torch.float32) + r
-                 for g, r in zip(tree_leaves(grads), ef.residual)]
-    compressed = [_quantize_dequantize(c) for c in corrected]
-    return compressed, ErrorFeedback(
-        residual=[c - q for c, q in zip(corrected, compressed)])
+    quantization error. ``Sharded`` leaves come back in their layouts."""
+    compressed, residual = [], []
+    for g, r in zip(tree_leaves(grads), ef.residual):
+        whole = gather(g).to(torch.float32)
+        c = whole + gather(r, whole.device)
+        q = _quantize_dequantize(c)
+        compressed.append(put(q, g.sharding) if isinstance(g, Sharded)
+                          else q)
+        residual.append(put(c - q, r.sharding) if isinstance(r, Sharded)
+                        else c - q)
+    return compressed, ErrorFeedback(residual=residual)

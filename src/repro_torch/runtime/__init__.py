@@ -1,2 +1,3 @@
 """Fault injection, the straggler watchdog and restarts
-(``fault_tolerance``)."""
+(``fault_tolerance``); restoring a train state onto another mesh
+(``elastic``)."""

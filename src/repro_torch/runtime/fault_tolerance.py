@@ -3,9 +3,8 @@ package's ``runtime/fault_tolerance.py`` (pure Python, copied).
 
 Production story (1000+ nodes): every step is wrapped in a watchdog; each
 host heartbeats; on failure the controller restarts the job and every host
-reloads the LATEST step-atomic checkpoint (restoring onto a changed mesh is
-the reference's ``runtime/elastic.py``, not ported: ROADMAP Queue A, item
-5). On one card the machinery is exercised through a failure-injection
+reloads the LATEST step-atomic checkpoint (onto a changed mesh through
+``runtime.elastic``). On one card the machinery is exercised through a failure-injection
 hook (``launch.train --fail-at``; tests/test_torch_train_loop.py kills and
 resumes a real training loop).
 

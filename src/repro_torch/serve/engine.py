@@ -17,6 +17,13 @@ state (SSM, mLSTM, sLSTM) is not reset when a new request takes its row,
 and every row's state advances while another row's prompt is prefilled;
 an ``EncDecLM`` decodes against the zero cross K/V of ``init_cache`` (no
 frames enter the engine).
+
+With ``mesh`` (a ``device.Mesh``, as ``launch.mesh.make_host_mesh`` gives)
+the cache is laid out per the model's ``cache_shardings`` (``spec.Sharded``
+leaves: attention K/V sequence-sharded over ``model``, rows over the data
+axes) and every decode step runs over the mesh (``decode_step(mesh=)``);
+the tokens and logits live on the mesh's first device. A mesh of one
+device is the unsharded engine.
 """
 from __future__ import annotations
 
@@ -25,6 +32,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..device import Mesh
+from ..models.spec import place_tree
 
 
 @dataclasses.dataclass
@@ -48,19 +58,23 @@ class ServeEngine:
                  prefill_mode: str = "fused"):
         if prefill_mode not in ("fused", "loop"):
             raise ValueError(f"prefill_mode must be fused|loop: {prefill_mode}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet: ROADMAP.md, Queue A, item 5 "
-                "(telemetry, mesh and fleet)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a device.Mesh, got "
+                            f"{type(mesh).__name__}")
         self.model = model
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.prefill_mode = prefill_mode
-        self.device = params["embed"].device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = (self.mesh.devices[0] if self.mesh is not None
+                       else params["embed"].device)
         self.cache = model.init_cache(max_batch, max_seq, dtype=torch.float32,
                                       device=self.device)
+        if self.mesh is not None:
+            self.cache = place_tree(self.cache, model.cache_shardings(
+                self.mesh, max_batch, max_seq, torch.float32))
         self.active: list[Optional[Request]] = [None] * max_batch
         self.waiting: list[Request] = []
         self.finished: list[Request] = []
@@ -68,7 +82,7 @@ class ServeEngine:
 
     def _decode(self, tokens: torch.Tensor):
         logits, self.cache = self.model.decode_step(self.params, tokens,
-                                                    self.cache)
+                                                    self.cache, self.mesh)
         return logits
 
     def _host_tokens(self, tokens: np.ndarray) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""The train step: loss, gradients, compression and AdamW (``step``)."""
+"""The train step: loss, gradients, compression and AdamW (``step``); the
+GPipe pipeline over a ``stage`` mesh axis (``pipeline``)."""

@@ -31,7 +31,10 @@ train step of each family's reduced config. Both attention kernels also
 run at the families' G = 5, 6, 12 and 48. The mesh on one card (4 logical
 devices, ``[cuda:0] * 4``): the sharded engine equals the unsharded one bit
 for bit (decisions, every refreshed aggregate, metrics, rider), and a batch
-and a calibration split over the 4 equal them on one.
+and a calibration split over the 4 equal them on one. The decode kernel's
+log-sum-exp form matches its plain version at the families' heads, and
+each family's reduced decode over the 4 logical devices (its KV cache
+sequence-sharded, the log-sum-exp form on each shard) equals the CPU's.
 """
 import numpy as np
 import pytest
@@ -922,3 +925,76 @@ def test_card_split_batch_and_calibration_equal_one_device(card):
     np.testing.assert_array_equal(one.stages[0].agg_fail,
                                   four.stages[0].agg_fail)
     np.testing.assert_array_equal(one.stages[0].util, four.stages[0].util)
+
+
+# the families' (H, KVH, Dh): llama3.2-1b, hymba, qwen3, chameleon and
+# dbrx, starcoder2, granite, whisper, moonshot
+LSE_HEADS = [(32, 8, 64), (25, 5, 64), (40, 8, 128), (48, 8, 128),
+             (24, 2, 128), (48, 1, 128), (12, 12, 64), (16, 16, 128)]
+
+
+@pytest.mark.parametrize("h,kvh,dh", LSE_HEADS)
+def test_decode_kernel_log_sum_exp_matches_plain_version(card, h, kvh, dh):
+    """The kernel's optional log-sum-exp at lengths 0, 1, 2,048 and 4,096
+    of a 4,096-slot bf16 cache: -inf at length 0, the plain version's
+    elsewhere (3e-5); the output keeps the bits of the call without it."""
+    gen = torch.Generator(device=card).manual_seed(h + dh)
+    q = _randn(gen, (4, h, dh), torch.bfloat16, card)
+    k = _randn(gen, (4, 4096, kvh, dh), torch.bfloat16, card)
+    v = _randn(gen, (4, 4096, kvh, dh), torch.bfloat16, card)
+    lengths = torch.tensor([0, 1, 2048, 4096], dtype=torch.int32,
+                           device=card)
+    before = dict(DG.LAUNCHES)
+    out, lse = DG.decode_gqa_bshd(q, k, v, lengths, return_lse=True)
+    plain_out = DG.decode_gqa_bshd(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert DG.LAUNCHES["decode_gqa_lse"] == before["decode_gqa_lse"] + 1
+    assert DG.LAUNCHES["decode_gqa"] == before["decode_gqa"] + 1
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (4, h) and bool(torch.isneginf(lse[0]).all())
+    want_out, want_lse = DR.decode_gqa_ref(q, k, v, lengths, return_lse=True)
+    torch.testing.assert_close(out, want_out, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(lse[1:], want_lse[1:], rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_each_family_decode_over_logical_devices_matches_cpu(card, name,
+                                                             monkeypatch):
+    """Each architecture's reduced config (head_dim 64, float32, no TF32)
+    decoding 20 teacher-forced steps over 4 logical devices of the card
+    (``launch.mesh.make_host_mesh`` under ``REPRO_TORCH_DEVICE_COUNT=4``),
+    its caches laid out by ``cache_shardings``, with the decode kernel's
+    log-sum-exp form on each sequence shard: against the unsharded model on
+    the CPU at 1e-4."""
+    import dataclasses
+
+    from repro_torch.device import DEVICE_COUNT_VAR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.spec import place_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setenv(DEVICE_COUNT_VAR, "4")
+    cfg = dataclasses.replace(reduced_config(get_config(name)), head_dim=64)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    p_card = model.init(torch.Generator().manual_seed(0), device=card)
+    mesh = make_host_mesh(card)
+    assert mesh.shape == (1, 4)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 20)))
+    cache_cpu = model.init_cache(2, 24, dtype=torch.float32, device="cpu")
+    cache_card = place_tree(
+        model.init_cache(2, 24, dtype=torch.float32, device=card),
+        model.cache_shardings(mesh, 2, 24, torch.float32))
+    before = DG.LAUNCHES["decode_gqa_lse"]
+    for t in range(20):
+        want, cache_cpu = model.decode_step(p_cpu, tokens[:, t], cache_cpu,
+                                            use_kernel=True)
+        got, cache_card = model.decode_step(p_card, tokens[:, t].to(card),
+                                            cache_card, mesh,
+                                            use_kernel=True)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+    decoders = (cfg.n_layers if cfg.family == "audio"
+                else sum(t in ("attn", "hybrid") for t in model.layer_types))
+    assert DG.LAUNCHES["decode_gqa_lse"] == before + 20 * decoders * 4

@@ -87,7 +87,7 @@ def test_forward_takes_a_batch_or_tokens_and_frames(pair):
     a = model.forward(params, {"tokens": tok, "frames": frames})
     b = model.forward(params, tok, frames=frames)
     assert torch.equal(a, b) and a.shape == (B, S, 256)
-    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
+    with pytest.raises(TypeError, match="device.Mesh"):
         model.forward(params, tok, mesh=object(), frames=frames)
 
 

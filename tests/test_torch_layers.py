@@ -156,9 +156,28 @@ def test_cache_update_clamps_like_dynamic_update_slice():
 
 
 def test_cache_update_with_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
-        TL._cache_update(torch.zeros(1, 4, 1, 2), torch.ones(1, 1, 1, 2),
-                         torch.tensor(0), mesh=object())
+    """A mesh whose model axis shards the cache's sequence takes the JAX
+    package's owner-rank write (tests/test_torch_lm_mesh.py holds it against
+    the JAX package's shard_map write): in range it is the plain write, at S
+    it writes nothing, where the plain write clamps onto the last entry."""
+    from repro_torch.device import Mesh
+    from repro_torch.models.spec import NamedSharding, PartitionSpec, put
+    mesh = Mesh((torch.device("cpu"),) * 2, ("data", "model"), (1, 2))
+    for slot, want_row in ((1, 1), (4, None)):
+        plain = TL._cache_update(torch.zeros(1, 4, 1, 2),
+                                 torch.ones(1, 1, 1, 2), torch.tensor(slot))
+        got = TL._cache_update(torch.zeros(1, 4, 1, 2),
+                               torch.ones(1, 1, 1, 2), torch.tensor(slot),
+                               mesh=mesh)
+        sharded = put(torch.zeros(1, 4, 1, 2),
+                      NamedSharding(mesh, PartitionSpec(None, "model")))
+        TL._cache_update(sharded, torch.ones(1, 1, 1, 2), torch.tensor(slot),
+                         mesh=mesh)
+        assert torch.equal(sharded.gather(), got)
+        if want_row is None:
+            assert not bool(got.any()) and float(plain[0, 3].sum()) == 2.0
+        else:
+            assert torch.equal(got, plain)
 
 
 @pytest.mark.parametrize("gated", [True, False])

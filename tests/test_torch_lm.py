@@ -22,6 +22,7 @@ from repro.models import get_config as jax_get_config
 from repro.models import reduced_config as jax_reduced
 from repro_torch import bridge
 from repro_torch.configs.llama3_2_1b import CONFIG
+from repro_torch.device import Mesh
 from repro_torch.models import (ARCH_NAMES, DecoderLM, build_model,
                                 get_config, reduced_config)
 from repro_torch.models.spec import init_params
@@ -159,9 +160,10 @@ def test_init_statistics():
 
 
 def test_unported_families_and_archs_raise():
-    """Every family builds; what still raises is an unknown arch and the
-    mesh options (ROADMAP Queue A item 5): expert-parallel MoE dispatch
-    (``moe_local_dispatch`` with a mesh) and a mesh anywhere else."""
+    """Every family builds; what raises is an unknown arch, and a mesh that
+    is not a ``device.Mesh``. Expert-parallel dispatch over a real mesh is
+    the global dispatch when nothing drops (tests/test_torch_lm_mesh.py
+    holds it and every mesh path against the JAX package)."""
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
     cfg = dataclasses.replace(
@@ -170,10 +172,13 @@ def test_unported_families_and_archs_raise():
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     h = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
+    with pytest.raises(TypeError, match="device.Mesh"):
         model._moe(params["layers"][0]["ffn"], h, mesh=object())
     assert model._moe(params["layers"][0]["ffn"], h).y.shape == h.shape
-    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
+    mesh = Mesh((torch.device("cpu"),) * 2, ("data", "model"), (1, 2))
+    assert torch.equal(model._moe(params["layers"][0]["ffn"], h, mesh).y,
+                       model._moe(params["layers"][0]["ffn"], h).y)
+    with pytest.raises(TypeError, match="device.Mesh"):
         model.forward(params, torch.zeros((1, 2), dtype=torch.int64),
                       mesh=object())
 

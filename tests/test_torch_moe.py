@@ -191,6 +191,18 @@ def test_moonshot_decode_step_drops_as_the_reference():
 
 
 def test_moe_local_raises_for_the_mesh():
+    """Expert-parallel dispatch over a mesh of two model ranks: with no
+    drops it is the global dispatch (tests/test_torch_lm_mesh.py holds it
+    against the JAX package's on 8 devices); only a ``device.Mesh`` is a
+    mesh."""
+    from repro_torch.device import Mesh
     jcfg, jparams, cfg, params = _layer()
-    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
+    cfg = cfg._replace(capacity_factor=8.0)
+    x = torch.from_numpy(_x(2, 6, 32, seed=4))
+    mesh = Mesh((torch.device("cpu"),) * 2, ("data", "model"), (1, 2))
+    got = tmoe.moe_local(params, cfg, x, mesh)
+    want = tmoe.moe(params, cfg, x)
+    assert float(got.dropped_frac) == float(want.dropped_frac) == 0.0
+    np.testing.assert_allclose(got.y.numpy(), want.y.numpy(), **TOL)
+    with pytest.raises(TypeError, match="device.Mesh"):
         tmoe.moe_local(params, cfg, torch.zeros(1, 2, 32), mesh=object())

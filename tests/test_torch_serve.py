@@ -161,7 +161,7 @@ def test_engine_refuses_bad_mode_and_mesh(engine_setup):
     cfg, model, params = engine_setup
     with pytest.raises(ValueError, match="prefill_mode"):
         ServeEngine(model, params, prefill_mode="scan")
-    with pytest.raises(NotImplementedError, match="Queue A, item 5"):
+    with pytest.raises(TypeError, match="device.Mesh"):
         ServeEngine(model, params, mesh=object())
 
 

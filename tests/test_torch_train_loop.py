@@ -136,11 +136,20 @@ def test_async_save_snapshots_before_returning(tmp_path):
 
 
 def test_restore_against_shardings_is_not_ported(tmp_path):
+    """Restoring against shardings lays each leaf out over its mesh
+    (tests/test_torch_train_mesh.py restores train states onto meshes)."""
+    from repro_torch.device import Mesh
+    from repro_torch.models.spec import (NamedSharding, PartitionSpec,
+                                         Sharded, map_leaves)
     state = _small_state()
     checkpointer.save(str(tmp_path), 1, state)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        checkpointer.restore(str(tmp_path), 1, state, shardings=state,
-                             device="cpu")
+    mesh = Mesh((torch.device("cpu"),) * 2, ("data", "model"), (1, 2))
+    shardings = map_leaves(lambda x: NamedSharding(
+        mesh, PartitionSpec(*(("model",) if x.ndim else ()))), state)
+    got = checkpointer.restore(str(tmp_path), 1, state, shardings=shardings,
+                               device="cpu")
+    for g, w in zip(tree_leaves(got), tree_leaves(state)):
+        assert isinstance(g, Sharded) and torch.equal(g.gather(), w)
 
 
 def test_checkpoints_cross_between_packages(tmp_path):
