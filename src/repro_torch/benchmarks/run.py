@@ -23,10 +23,10 @@ thetas ``serve_bench`` serves at) from ``$REPRO_BENCH_JSON`` when it is
 set, else from the JAX package's ``BENCH_<scale>.json``.
 
 PyTorch counterpart of the JAX package's ``benchmarks/run.py``, on
-``--device`` (the card unless the caller passes ``cpu``). Its ``roofline``
-module reads the TPU dry run's HLO of the train step on the 512-device
-production mesh, which the port does not lower yet (ROADMAP.md, Queue A,
-item 5, its last slice), and has no counterpart yet.
+``--device`` (the card unless the caller passes ``cpu``), module for
+module. Its ``roofline`` rows read the port's dry-run records
+(``python -m repro_torch.launch.dryrun``, in ``artifacts/dryrun_torch/``)
+and need no device.
 """
 from __future__ import annotations
 
@@ -40,11 +40,12 @@ import time
 import torch
 
 from . import (ablation_marginal, drift_bench, fig1_priors, fig2_pricing,
-               fleet_bench, kernels_bench, scenarios, serve_bench,
+               fleet_bench, kernels_bench, roofline, scenarios, serve_bench,
                table2_policies, tuning_bench)
 
 MODULES = {
     "kernels": kernels_bench,
+    "roofline": roofline,
     "table2": table2_policies,
     "fig1": fig1_priors,
     "fig2": fig2_pricing,
@@ -56,13 +57,8 @@ MODULES = {
     "drift": drift_bench,
 }
 
-#: the JAX package's modules that the port has no counterpart of yet
-NOT_PORTED = {
-    "roofline": "reads the artifacts of the TPU dry run, which lowers the "
-                "train step onto a 512-device production mesh, at v5e "
-                "peaks (the card's bounds are computed in chip_smoke.py); "
-                "ROADMAP.md, Queue A, item 5 (the mesh)",
-}
+#: the JAX package's modules that the port has no counterpart of: none
+NOT_PORTED: dict = {}
 
 
 def merge_records(path: str, scale: str, seed: int, total: float,

@@ -11,6 +11,8 @@ Functions only: importing this module touches no device.
 """
 from __future__ import annotations
 
+import torch
+
 from ..device import DEVICE_COUNT_VAR, Mesh, canonical_device, visible_devices
 
 
@@ -18,12 +20,16 @@ def make_production_mesh(*, multi_pod: bool = False,
                          device="cuda") -> Mesh:
     """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
     "model") with ``multi_pod``, on the visible devices of ``device``'s
-    kind; raises when fewer are visible."""
+    kind; raises when fewer are visible. ``device="meta"`` repeats the
+    shape-only device, any number of which cost nothing (the dry run's
+    mesh)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = 1
     for s in shape:
         n *= s
+    if torch.device(device).type == "meta":
+        return Mesh([torch.device("meta")] * n, axes, shape)
     devices = visible_devices(device)
     if len(devices) < n:
         raise ValueError(

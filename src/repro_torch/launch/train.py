@@ -74,6 +74,9 @@ def train(args) -> int:
         start = 0
         state = None
         if args.resume or _start_hint != 0:
+            # a save still being written when the step failed lands first,
+            # so a restart resumes from the newest checkpoint, not a race
+            ckpt.wait()
             latest = checkpointer.latest_step(args.ckpt_dir)
             if latest is not None:
                 shardings = (state_shardings(model, mesh,

@@ -12,9 +12,11 @@ both run the einsum path.
 Over a device mesh (``attention_decode(mesh=)``) a KV cache whose sequence
 dim is sharded over ``model`` (a ``spec.Sharded`` placed per
 ``DecoderLM.cache_shardings``) is written only in the owning rank's shard
-(``_cache_update``) and read shard by shard, each on its own device, the
-shards' partial softmaxes combined in rank order (flash-decode): no decode
-step gathers a whole cache onto one device.
+(``_cache_update``) and read shard by shard, each on its own device
+(flash-decode: the einsum lane takes the softmax's max and sum over the
+shards before it normalises, the kernel lane combines the shards' partial
+softmaxes), in rank order: no decode step gathers a whole cache onto one
+device.
 
 Types follow JAX's rules. A JAX einsum with ``preferred_element_type=f32``
 on bf16 operands gives a float32 result, so those einsums run on float32
@@ -315,14 +317,17 @@ def _sharded_decode(q, cfg: AttnConfig, cache: KVCache, pos, row0: int,
     shards, each on its own device, combined on q's device in rank order:
     [B, H, Dh] float32.
 
-    The einsum lane takes each shard's max m_r, sum l_r and unnormalised
-    P.V acc_r (float32, p unrounded; the unsharded lane rounds the
-    normalised p to the cache's dtype, which is float32 in the engine) and
-    combines m = max m_r, out = sum acc_r e^(m_r - m) / sum l_r e^(m_r - m).
-    The kernel lane launches the decode kernel on each shard with its
-    local valid length and its log-sum-exp, and combines the shards'
-    outputs weighted by e^(lse_r - max lse). A shard with no valid key has
-    weight 0."""
+    The einsum lane computes the unsharded lane's softmax in two passes
+    over the shards: each shard's masked logits and max m_r (m = max m_r),
+    then its sum l_r = sum e^(logit - m) (l = the l_r summed in rank
+    order), then its normalised p = e^(logit - m) / l rounded to the
+    cache's dtype before P.V, as the unsharded lane and the JAX package's
+    ``attention_decode`` (GSPMD's global softmax over a sharded cache)
+    round it; the shards' P.V are summed in rank order. The kernel lane
+    launches the decode kernel on each shard with its local valid length
+    and its log-sum-exp (p kept in float32, as the TPU kernel keeps it),
+    and combines the shards' outputs weighted by e^(lse_r - max lse). A
+    shard with no valid key has weight 0."""
     b = q.shape[0]
     kvh, dh = cfg.n_kv_heads, cfg.head_dim
     groups = cfg.n_heads // kvh
@@ -348,11 +353,8 @@ def _sharded_decode(q, cfg: AttnConfig, cache: KVCache, pos, row0: int,
         kpos = torch.arange(s0, s1, device=dev)
         valid = kpos <= pd if cfg.window == 0 else (
             (kpos <= pd) | (pd >= size))
-        m_r = torch.where(valid, logits, NEG_INF).amax(-1, keepdim=True)
-        p = torch.where(valid, torch.exp(logits - m_r), 0.0)
-        acc_r = torch.einsum("bhgk,bkhd->bhgd", p, vb.to(F32))
-        parts.append((m_r.to(home), p.sum(-1, keepdim=True).to(home),
-                      acc_r.to(home)))
+        logits = torch.where(valid, logits, NEG_INF)
+        parts.append((logits, vb, logits.amax(-1, keepdim=True).to(home)))
     if use_kernel:
         m = torch.stack([lse for _, lse in parts]).amax(0)
         m = torch.where(torch.isfinite(m), m, 0.0)
@@ -362,13 +364,20 @@ def _sharded_decode(q, cfg: AttnConfig, cache: KVCache, pos, row0: int,
             out = out_r * w if out is None else out + out_r * w
             l = w if l is None else l + w
         return out / l.clamp_min(1e-30)
-    m = torch.stack([m_r for m_r, _, _ in parts]).amax(0)
-    acc = l = None
-    for m_r, l_r, acc_r in parts:
-        c = torch.exp(m_r - m)
-        acc = acc_r * c if acc is None else acc + acc_r * c
-        l = l_r * c if l is None else l + l_r * c
-    return (acc / l).reshape(b, cfg.n_heads, dh)
+    m = torch.stack([m_r for _, _, m_r in parts]).amax(0)
+    l = None
+    for logits, _, _ in parts:
+        l_r = torch.exp(logits - m.to(logits.device)).sum(
+            -1, keepdim=True).to(home)
+        l = l_r if l is None else l + l_r
+    out = None
+    for logits, vb, _ in parts:
+        dev = logits.device
+        p = torch.exp(logits - m.to(dev)) / l.to(dev)
+        acc_r = torch.einsum("bhgk,bkhd->bhgd", p.to(vb.dtype).to(F32),
+                             vb.to(F32)).to(home)
+        out = acc_r if out is None else out + acc_r
+    return out.reshape(b, cfg.n_heads, dh)
 
 
 def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, *,

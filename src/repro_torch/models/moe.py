@@ -111,6 +111,14 @@ def aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
     return e * torch.sum(me * ce)
 
 
+def bin_counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=n)`` for ``idx`` in [0, n), int64, as
+    a scatter-add of ones: the same integers, and an op that has a ``meta``
+    kernel (``bincount`` has none, so the dry run could not count MoE)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx.long(), torch.ones_like(idx, dtype=torch.int64))
+
+
 def dispatch(expert_idx: torch.Tensor, cfg: MoEConfig) -> Dispatch:
     """The reference's sort, positions, capacity and kept mask."""
     t, k = expert_idx.shape
@@ -120,7 +128,7 @@ def dispatch(expert_idx: torch.Tensor, cfg: MoEConfig) -> Dispatch:
     flat_token = torch.arange(t, device=device).repeat_interleave(k)
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
-    counts = torch.bincount(flat_expert, minlength=e)
+    counts = bin_counts(flat_expert, e)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=device) - starts[sorted_expert]
     cap = capacity(t, cfg)
@@ -224,7 +232,7 @@ def moe_local_rank(params, cfg: MoEConfig, x: torch.Tensor, mesh,
         le = torch.where(is_local, flat_e - lo, e_loc)
         order = torch.argsort(le, stable=True)
         se, st = le[order], flat_t[order]
-        counts = torch.bincount(le, minlength=e_loc + 1)
+        counts = bin_counts(le, e_loc + 1)
         starts = torch.cumsum(counts, 0) - counts
         pos = torch.arange(t * k, device=dev) - starts[se]
         keep = (pos < cap) & (se < e_loc)

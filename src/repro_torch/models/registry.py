@@ -1,5 +1,5 @@
-"""Architecture registry: --arch <id> -> model config and instance, for the
-JAX package's ten architectures."""
+"""Architecture registry: --arch <id> -> model config and instance, and the
+input specs of a cell, for the JAX package's ten architectures."""
 from __future__ import annotations
 
 import dataclasses
@@ -67,3 +67,23 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         enc_seq=24 if cfg.enc_layers else 1500,
         dtype=torch.float32,
     )
+
+
+def input_specs(cfg: ModelConfig, shape_cfg) -> dict:
+    """``meta`` stand-ins for every model input of an (arch, shape) cell:
+    the shapes and dtypes of the JAX package's ``ShapeDtypeStruct``s, no
+    storage. int32 tokens (and labels for a train cell), bf16 ``frames``
+    [B, enc_seq, D] for audio; a decode cell's one new token a row."""
+    b, s = shape_cfg.global_batch, shape_cfg.seq_len
+
+    def meta(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if shape_cfg.kind == "decode":
+        return {"tokens": meta((b,))}
+    specs = {"tokens": meta((b, s))}
+    if shape_cfg.kind == "train":
+        specs["labels"] = meta((b, s))
+    if cfg.family == "audio":
+        specs["frames"] = meta((b, cfg.enc_seq, cfg.d_model), torch.bfloat16)
+    return specs

@@ -14,7 +14,10 @@ package's ``benchmarks/`` at small size, on the CPU.
   ``run()`` is never run whole: its ``sharded`` row starts a subprocess
   with 8 XLA devices. The port's ``sharded`` row runs in-process, on 8
   logical devices (``REPRO_TORCH_DEVICE_COUNT``, restored afterwards).
-* The rows with no counterpart raise, naming their ROADMAP items.
+* Every JAX module has its counterpart: ``--only roofline`` gives the
+  ``roofline/no_artifacts`` row without dry-run records and a row a
+  record with one (the sharded ``serve`` row and an unknown module are
+  in the same test).
 * ``kernels_bench`` on the CPU: the plain rows only; the fused aggregate
   equals the per-slot sum.
 * ``run.main`` writes a ``--json`` file and merges into it.
@@ -273,7 +276,9 @@ def test_serve_bench_smoke_names_and_numbers(bench_with_thetas,
     assert by["serve/smoke/sharded"].endswith(" shards=8")
 
 
-def test_rows_without_a_counterpart_raise_naming_their_items(monkeypatch):
+def test_rows_without_a_counterpart_raise_naming_their_items(monkeypatch,
+                                                             tmp_path,
+                                                             capsys):
     # serve_bench's sharded row has its counterpart now (the mesh): the
     # engine over 8 logical devices, the variable restored afterwards
     monkeypatch.setenv("REPRO_TORCH_DEVICE_COUNT", "2")
@@ -281,13 +286,30 @@ def test_rows_without_a_counterpart_raise_naming_their_items(monkeypatch):
                                      per_tick=4, device="cpu")
     assert m["n_decisions"] == 4 and m["decisions_per_s"] > 0
     assert os.environ["REPRO_TORCH_DEVICE_COUNT"] == "2"
-    with pytest.raises(NotImplementedError, match="item 5 \\(the mesh\\)"):
-        bench_run.main(["--only", "roofline", "--device", "cpu"])
+    # so has roofline (the dry run): no records, then one record
+    from repro_torch.benchmarks import roofline
+    monkeypatch.setattr(roofline, "ART_DIR", str(tmp_path))
+    bench_run.main(["--only", "roofline", "--device", "cpu"])
+    rows = capsys.readouterr().out.splitlines()
+    assert rows[1].startswith("roofline/no_artifacts,0.0,")
+    rec = {"status": "ok", "arch": "llama3.2-1b", "shape": "train_4k",
+           "kind": "train", "n_devices": 256, "global_batch": 256,
+           "seq_len": 4096, "n_active_params": 1_235_814_400,
+           "cost": {"flops": 7.0e14, "bytes accessed": 2.0e13},
+           "collectives": {"total_wire_bytes": 5.0e9},
+           "cost_sum_over_devices": {"flops": 1.12e16},
+           "memory": {}, "extrapolated": {"variant": "baseline"}}
+    (tmp_path / "llama3.2-1b_train_4k_single_pod.json").write_text(
+        json.dumps(rec))
+    bench_run.main(["--only", "roofline", "--device", "cpu"])
+    rows = capsys.readouterr().out.splitlines()
+    assert len(rows) == 2 and rows[1].startswith(
+        "roofline/single_pod/llama3.2-1b/train_4k,")
+    assert "dom=memory" in rows[1]
     with pytest.raises(KeyError, match="unknown"):
         bench_run.main(["--only", "nope", "--device", "cpu"])
-    assert "roofline" not in bench_run.MODULES
-    assert set(bench_run.MODULES) | {"roofline"} == set(
-        _jax_benchmarks("run").MODULES)
+    assert not bench_run.NOT_PORTED
+    assert set(bench_run.MODULES) == set(_jax_benchmarks("run").MODULES)
 
 
 @pytest.mark.parametrize("name", sorted(bench_run.MODULES))
@@ -328,7 +350,8 @@ def test_kernels_bench_plain_rows_on_the_cpu(monkeypatch):
 def test_run_main_writes_and_merges(tmp_path, monkeypatch, capsys):
     """The CLI into a new file, then another module's rows merged into it:
     the first rows kept, the new ones appended, no name twice, the compute
-    accumulated, the seeds told apart, the device in every row."""
+    accumulated, the seeds told apart, the device in every row; a list
+    naming an unknown module runs none of them."""
     def module(*names):
         return types.SimpleNamespace(run=lambda scale_name, seed, device: [
             f"{n}/{scale_name},1.5,x={seed}" for n in names])
@@ -355,5 +378,8 @@ def test_run_main_writes_and_merges(tmp_path, monkeypatch, capsys):
         ("a/tiny", 0), ("b/tiny", 3), ("c/tiny", 3)]
     assert second["seed"] == "mixed" and second["device"] == "cpu"
     assert second["total_seconds"] >= first["total_seconds"]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        bench_run.main(["--only", "two,roofline", "--device", "cpu"])
+    # every module of the list is checked before any of them runs
+    capsys.readouterr()
+    with pytest.raises(KeyError, match="unknown"):
+        bench_run.main(["--only", "two,nope", "--device", "cpu"])
+    assert capsys.readouterr().out == ""

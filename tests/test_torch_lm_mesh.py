@@ -390,6 +390,49 @@ def test_attention_decode_over_a_mesh(shape, window, size, steps,
                                   plain.k.numpy())
 
 
+@pytest.mark.parametrize("window,size,steps", [(0, 32, 12), (16, 16, 21)])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_attention_decode_over_a_mesh_in_bf16(shape, window, size, steps):
+    """The einsum lane over a bf16 cache sharded along its sequence rounds
+    the normalised p to bf16 before P.V, as the unsharded lane and the JAX
+    package's ``attention_decode`` do (before, it kept each shard's p in
+    float32 unnormalised: 3e-3 rms apart a layer, 1.7e-2 at llama3.2-1b's
+    logits on the card). Bound: one bf16 ulp of the output's largest entry
+    (2^-8 of it) against the unsharded lane, two against the JAX function
+    (bf16 products and sums in XLA's order)."""
+    mesh = _mesh(shape)
+    cfg, tcfg, jp, tp = _attn_pair(window)
+    b = 4
+    bf = torch.bfloat16
+    xs = np.random.default_rng(5).standard_normal(
+        (steps, b, 1, 64)).astype(np.float32)
+    jcache = JL.init_kv_cache(b, size, cfg, jnp.bfloat16)
+    plain = TL.init_kv_cache(b, size, tcfg, bf, device="cpu")
+    spec = NamedSharding(mesh, PartitionSpec("data", "model"))
+    sharded = TL.KVCache(*(put(t, spec) for t in plain[:2]), plain.length)
+    jpb = {k: v.astype(jnp.bfloat16) for k, v in jp.items()}
+    tpb = {k: v.to(bf) for k, v in tp.items()}
+    for t in range(steps):
+        x = torch.from_numpy(xs[t]).to(bf)
+        want, jcache = JL.attention_decode(
+            jpb, cfg, jnp.asarray(xs[t]).astype(jnp.bfloat16), jcache)
+        ref, plain = TL.attention_decode(tpb, tcfg, x, plain)
+        parts = []
+        for r in batch_ranks(mesh, b):
+            out, new = TL.attention_decode(tpb, tcfg, x[r.lo:r.hi], sharded,
+                                           mesh=mesh, row0=r.lo)
+            parts.append(out)
+        sharded = sharded._replace(length=new.length)
+        got = torch.cat(parts).float()
+        ref = ref.float()
+        ulp = 2.0 ** -8 * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= ulp
+        jwant = np.asarray(want.astype(jnp.float32))
+        assert float(np.abs(got.numpy() - jwant).max()) <= 2 * ulp
+    np.testing.assert_array_equal(sharded.k.gather().float().numpy(),
+                                  plain.k.float().numpy())
+
+
 # ---------------------------------------------------------------------------
 # every family over a mesh
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ the launcher and the example, on the CPU.
 import json
 import os
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -260,6 +261,29 @@ def test_launcher_survives_an_injected_failure(tmp_path, capsys):
     losses = [float(line.split("loss=")[1].split()[0])
               for line in out.splitlines() if "loss=" in line]
     assert losses and all(np.isfinite(losses))
+
+
+def test_restart_waits_for_the_save_in_flight(tmp_path, capsys,
+                                              monkeypatch):
+    """A save still being written when the step fails lands before the
+    restart reads LATEST: the run resumes from it, not from step 0."""
+    write = checkpointer._write
+    started = threading.Event()
+
+    def slow_write(directory, step, host, treedef):
+        started.set()
+        time.sleep(1.0)
+        return write(directory, step, host, treedef)
+
+    monkeypatch.setattr(checkpointer, "_write", slow_write)
+    launch_train.main(["--reduced", "--device", "cpu", "--steps", "8",
+                       "--fail-at", "5", "--ckpt-every", "4", "--ckpt-dir",
+                       str(tmp_path)])
+    out = capsys.readouterr().out
+    assert started.is_set()
+    assert "restart #1: injected node failure at step 5" in out
+    assert "[train] resumed from step 4" in out
+    assert "[train] done at step 8" in out
 
 
 def test_train_lm_example_smoke(capsys):
