@@ -1,0 +1,13 @@
+"""policy_ms_per_step: host milliseconds inside the port's
+``repro.sim.decide`` ranges (the policy's sequential admission over a
+step's candidates) over the traced stretch's batched steps. Read from the
+profile that holds the card's kernels (``perfbench/ranges.py``): nothing
+to read without them or without the range."""
+from perfbench import ranges
+
+
+def read(ctx):
+    rg = ranges.of(ctx.trace)
+    if rg is None or not ranges.calls(rg, "repro.sim.decide"):
+        return None
+    return ranges.host_ms(rg, "repro.sim.decide") / rg.steps

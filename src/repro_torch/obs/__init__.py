@@ -18,7 +18,7 @@ from .counters import (N_OCC_BINS, N_STALENESS_BINS, TelemetryState,
 from .export import (LATENCY_BUCKETS_S, HostHistogram, Metric, MetricsServer,
                      log_buckets, render_prometheus, snapshot_to_prometheus)
 from .log import get_logger, set_level
-from .tracing import DecisionTracer, annotate
+from .tracing import SIM_SPANS, DecisionTracer, annotate
 
 __all__ = [
     "N_OCC_BINS", "N_STALENESS_BINS", "TelemetryState", "WindowStats",
@@ -27,5 +27,5 @@ __all__ = [
     "LATENCY_BUCKETS_S", "HostHistogram", "Metric", "MetricsServer",
     "log_buckets", "render_prometheus", "snapshot_to_prometheus",
     "get_logger", "set_level",
-    "DecisionTracer", "annotate",
+    "SIM_SPANS", "DecisionTracer", "annotate",
 ]

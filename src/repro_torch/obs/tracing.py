@@ -9,12 +9,15 @@ written to the JSONL sink when the buffer drains, so tracing costs the
 decision path a list append. A tensor value is copied to the host at the
 drain.
 
-``annotate(name)`` is ``torch.profiler.record_function``, so the engine's
-refresh / tick / flush regions show as named ranges in a ``torch.profiler``
-trace of the step.
+``annotate(name)`` opens a named ``torch.profiler`` range: the engine's
+refresh / tick / flush regions (``repro.engine.*``) and the simulator's
+layers (``repro.sim.*``, ``SIM_SPANS``) show by name in a ``torch.profiler``
+trace of a step. With no profiler running a range costs one check and
+nothing else.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import IO, Optional
@@ -28,6 +31,34 @@ log = get_logger(__name__)
 
 #: buffered records before an automatic drain
 DEFAULT_CAPACITY = 4096
+
+#: the simulator's ranges, each opened once a batch or once a step, never
+#: once a run or a candidate; a range's parent is the innermost one that
+#: contains it (batch > step > draws, ...):
+#:
+#:   repro.sim.batch       ``run_keyed_batch``, the call (and each device
+#:                         chunk of a split batch)
+#:   repro.sim.stream      the run's arrival stream, its per-step views and
+#:                         the candidates' rows, before the step loop
+#:   repro.sim.init        the fresh state
+#:   repro.sim.step        one iteration of the step loop
+#:   repro.sim.refresh     the aggregate refresh (the kernel, or zeros)
+#:   repro.sim.draws       one step's event draws (``sample_step_events``)
+#:   repro.sim.events      deaths, grants, belief updates, the rider's fold
+#:   repro.sim.candidates  the candidates' curves (the rows kernel, or zeros)
+#:   repro.sim.decide      the policy's sequential admission
+#:   repro.sim.place       slot placement and the rider's decision fold
+#:   repro.sim.route       a fleet's router (draw, assign)
+#:   repro.sim.metrics     the run metrics and the stacked traces and
+#:                         decisions, after the loop
+SIM_SPANS = ("repro.sim.batch", "repro.sim.stream", "repro.sim.init",
+             "repro.sim.step", "repro.sim.refresh", "repro.sim.draws",
+             "repro.sim.events", "repro.sim.candidates", "repro.sim.decide",
+             "repro.sim.place", "repro.sim.route", "repro.sim.metrics")
+
+_OFF = contextlib.nullcontext()
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 torch.profiler.record_function)
 
 
 def _jsonable(value):
@@ -107,12 +138,26 @@ class DecisionTracer:
 
 
 def annotate(name: str):
-    """A named ``torch.profiler`` range (``record_function``).
+    """A named ``torch.profiler`` range while a profiler runs, else one
+    shared ``contextlib.nullcontext()``: with no profiler running a range
+    costs the check of ``torch.autograd._profiler_enabled()`` alone.
 
-    Wrap engine step / aggregate-refresh / flush regions so a captured
-    profiler trace attributes host and device time to admission phases::
+    Wrap admission phases so a captured profiler trace attributes host and
+    device time to them::
 
         with annotate("repro.engine.flush"):
             accept = self._decide(...)
+
+    The range is a host operator of its own (``_RecordFunctionFast``, the
+    range ``torch.compile``'s code opens), not a user annotation
+    (``record_function``): under CUDA activity the profiler adds a
+    device-side copy of a user annotation spanning its kernels and the gaps
+    between them, which a reader of the card's activity would count as a
+    kernel and as busy time. So the ranges show on the host's timeline of a
+    chrome or Perfetto trace and not on the card's. ``_RecordFunctionFast``
+    is private to torch (checked on 2.11 and 2.13); where a torch lacks it
+    the range is a ``record_function`` instead.
     """
-    return torch.profiler.record_function(name)
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _RANGE(name)

@@ -84,6 +84,7 @@ from ..device import (Mesh, canonical_device, resolve_device,
                       visible_devices)
 from ..obs.counters import (TelemetryState, WindowStats, fold_decisions,
                             fold_window, init_telemetry, mark_refresh)
+from ..obs.tracing import annotate
 
 GLOBAL, PSEUDO, MIX_LABELED, MIX_UNLABELED = "global", "pseudo", "labeled", "unlabeled"
 AGG_FUSED, AGG_REFERENCE, AGG_KERNEL = "fused", "reference", "kernel"
@@ -520,17 +521,18 @@ def _make_candidates_fn(cfg: SimConfig, grid: torch.Tensor,
     weights = torch.tensor(_MIX_WEIGHTS, dtype=F32, device=grid.device)
 
     def candidates(rows_t: CandidateRows) -> MomentCurves:
-        if not needs_moments:
-            shape = rows_t.c0.shape
-            if mixture:     # [..., 2, A] rows: [..., A] candidates
-                shape = (*shape[:-2], shape[-1])
-            zeros = torch.zeros((*shape, n_grid), dtype=F32,
-                                device=rows_t.c0.device)
-            return MomentCurves(EL=zeros, VL=zeros)
-        if mixture:
-            return mixture_moments(weights, type_curves(cfg, grid, rows_t,
-                                                        curves_fn))
-        return row_curves(cfg, grid, rows_t, curves_fn)
+        with annotate("repro.sim.candidates"):
+            if not needs_moments:
+                shape = rows_t.c0.shape
+                if mixture:     # [..., 2, A] rows: [..., A] candidates
+                    shape = (*shape[:-2], shape[-1])
+                zeros = torch.zeros((*shape, n_grid), dtype=F32,
+                                    device=rows_t.c0.device)
+                return MomentCurves(EL=zeros, VL=zeros)
+            if mixture:
+                return mixture_moments(weights, type_curves(
+                    cfg, grid, rows_t, curves_fn))
+            return row_curves(cfg, grid, rows_t, curves_fn)
 
     return candidates
 
@@ -538,8 +540,9 @@ def _make_candidates_fn(cfg: SimConfig, grid: torch.Tensor,
 def _sample_events(cfg: SimConfig, gen, slots: SimState) -> StepEvents:
     """One step's random events for the slot table (dead slots get zero
     rates); ``gen`` is a generator, or one for each run of [R, S] slots."""
-    return sample_step_events(gen, slots.params, slots.cores, cfg.priors,
-                              cfg.dt, alive=slots.alive)
+    with annotate("repro.sim.draws"):
+        return sample_step_events(gen, slots.params, slots.cores, cfg.priors,
+                                  cfg.dt, alive=slots.alive)
 
 
 def _apply_step_events(cfg: SimConfig, slots: SimState, ev: StepEvents,
@@ -681,12 +684,14 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         Zeroth-moment policies never read the curves, so their refresh
         keeps the zero placeholder instead of paying for the reduction.
         With telemetry the rider's staleness clock returns to zero."""
-        tel = mark_refresh(cs.tel) if cfg.telemetry else cs.tel
-        if not needs_moments:
-            return cs._replace(agg_el=torch.zeros_like(cs.agg_el),
-                               agg_vl=torch.zeros_like(cs.agg_vl), tel=tel)
-        agg = aggregate_fn(cs.slots.bel, cs.slots.cores, cs.slots.alive)
-        return cs._replace(agg_el=agg.EL, agg_vl=agg.VL, tel=tel)
+        with annotate("repro.sim.refresh"):
+            tel = mark_refresh(cs.tel) if cfg.telemetry else cs.tel
+            if not needs_moments:
+                return cs._replace(agg_el=torch.zeros_like(cs.agg_el),
+                                   agg_vl=torch.zeros_like(cs.agg_vl),
+                                   tel=tel)
+            agg = aggregate_fn(cs.slots.bel, cs.slots.cores, cs.slots.alive)
+            return cs._replace(agg_el=agg.EL, agg_vl=agg.VL, tel=tel)
 
     def sample_events(gen, slots: SimState) -> StepEvents:
         return _sample_events(cfg, gen, slots)
@@ -700,10 +705,11 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         aggregate is NOT touched — within-block staleness is the
         ``agg_refresh_steps`` contract."""
         cap = cfg.capacity if capacity is None else capacity
-        slots, out, stats = _apply_step_events(cfg, cs.slots, events, cap,
-                                               with_stats=cfg.telemetry)
-        tel = (fold_window(cs.tel, out.util, cap, stats) if cfg.telemetry
-               else cs.tel)
+        with annotate("repro.sim.events"):
+            slots, out, stats = _apply_step_events(
+                cfg, cs.slots, events, cap, with_stats=cfg.telemetry)
+            tel = (fold_window(cs.tel, out.util, cap, stats) if cfg.telemetry
+                   else cs.tel)
         return cs._replace(slots=slots, tel=tel), out
 
     def apply_events(gen, cs: CoreState, capacity=None):
@@ -716,22 +722,25 @@ def make_admission_core(cfg: SimConfig, grid, policy_kind: int, *,
         # the placed candidates' fold is the admit loop's running aggregate
         # capped at the free slots: added one at a time in arrival order,
         # the same for a run alone and in a batch
-        room = (torch.sum(~cs.slots.alive, dim=-1) if needs_moments
-                else None)
-        args = (policy, cs.agg_el, cs.agg_vl, util, cand, stream_t.c0, valid)
-        diag = fits = None
-        if verbose:
-            res, diag = admit_sequential_verbose(*args, room=room)
-            fits = diag.fits
-        elif cfg.telemetry:     # the rider needs the fit flags, not scores
-            res, fits = admit_sequential_fits(*args, room=room)
-        else:
-            res = admit_sequential(*args, room=room)
-        slots, placed = _place_arrivals(cs.slots, res.accept, stream_t)
+        with annotate("repro.sim.decide"):
+            room = (torch.sum(~cs.slots.alive, dim=-1) if needs_moments
+                    else None)
+            args = (policy, cs.agg_el, cs.agg_vl, util, cand, stream_t.c0,
+                    valid)
+            diag = fits = None
+            if verbose:
+                res, diag = admit_sequential_verbose(*args, room=room)
+                fits = diag.fits
+            elif cfg.telemetry:     # the rider needs the fit flags, not scores
+                res, fits = admit_sequential_fits(*args, room=room)
+            else:
+                res = admit_sequential(*args, room=room)
+        with annotate("repro.sim.place"):
+            slots, placed = _place_arrivals(cs.slots, res.accept, stream_t)
+            tel = (fold_decisions(cs.tel, res.accept, valid, fits, placed,
+                                  stream_t.c0) if cfg.telemetry else cs.tel)
         agg_el, agg_vl = ((res.agg_el, res.agg_vl) if needs_moments
                           else (cs.agg_el, cs.agg_vl))
-        tel = (fold_decisions(cs.tel, res.accept, valid, fits, placed,
-                              stream_t.c0) if cfg.telemetry else cs.tel)
         return CoreState(slots=slots, agg_el=agg_el, agg_vl=agg_vl,
                          tel=tel), res.accept, diag
 
@@ -855,16 +864,18 @@ def _shard_over_slots(core: AdmissionCore, mesh: Mesh) -> AdmissionCore:
     def refresh_aggregates(cs: CoreState) -> CoreState:
         if not core.needs_moments:
             return core.refresh_aggregates(cs)
-        tel = mark_refresh(cs.tel) if cfg.telemetry else cs.tel
-        bel = cs.slots.bel
-        parts = [moment_curves_fused(GammaBelief(*(x[i] for x in bel)),
-                                     cs.slots.cores[i], grids[i], cfg.priors,
-                                     d_points=cfg.d_points)
-                 for i in range(n_shards)]
-        curves = MomentCurves(*(torch.cat([x.to(first) for x in xs])
-                                for xs in zip(*parts)))
-        agg = masked_curve_reduction(curves, gather(cs.slots.alive).to(F32))
-        return cs._replace(agg_el=agg.EL, agg_vl=agg.VL, tel=tel)
+        with annotate("repro.sim.refresh"):
+            tel = mark_refresh(cs.tel) if cfg.telemetry else cs.tel
+            bel = cs.slots.bel
+            parts = [moment_curves_fused(GammaBelief(*(x[i] for x in bel)),
+                                         cs.slots.cores[i], grids[i],
+                                         cfg.priors, d_points=cfg.d_points)
+                     for i in range(n_shards)]
+            curves = MomentCurves(*(torch.cat([x.to(first) for x in xs])
+                                    for xs in zip(*parts)))
+            agg = masked_curve_reduction(curves,
+                                         gather(cs.slots.alive).to(F32))
+            return cs._replace(agg_el=agg.EL, agg_vl=agg.VL, tel=tel)
 
     def on_gathered(cs: CoreState, step):
         """``step(full_cs) -> (cs, *rest)`` on the gathered table, its [S]

@@ -60,6 +60,7 @@ from ..core.moments import MomentCurves
 from ..core.policies import PolicyParams
 from ..core.processes import F32, DeploymentParams, StepEvents
 from ..device import canonical_device, visible_devices
+from ..obs.tracing import annotate
 from .core import (ArrivalSource, ArrivalStream, FleetConfig,
                    PriorArrivalSource, SimConfig, SimState, StepOutcome,
                    _validate_fleet_config, make_admission_core,
@@ -312,41 +313,48 @@ def make_run(cfg: SimConfig, horizon_grid, policy_kind: int,
             runs = len(gen)
         else:
             gen, runs = _generator(gen_or_seed, device), None
-        policy = tree_to(policy, device)
-        stream = _run_stream(source, cfg, gen if batch else [gen], batch,
-                             stream, device)
         if events is not None and len(events) != n_steps:
             raise ValueError(f"events has {len(events)} steps, the run "
                              f"{n_steps}")
-        cs = core.init(runs)
+        with annotate("repro.sim.stream"):
+            policy = tree_to(policy, device)
+            stream = _run_stream(source, cfg, gen if batch else [gen], batch,
+                                 stream, device)
+            rows = _steps(core.candidate_rows(stream))
+            steps = _steps(stream)
+        with annotate("repro.sim.init"):
+            cs = core.init(runs)
         util_trace, fail_trace, accepts = [], [], []
-        rows = _steps(core.candidate_rows(stream))
-        for t, stream_t in enumerate(_steps(stream)):
-            if t % k_refresh == 0:
-                cs = core.refresh_aggregates(cs)
-            if events is None:
-                cs, out = core.apply_events(gen, cs)
-            else:
-                cs, out = core.observe_events(cs, tree_to(events[t], device))
+        for t, stream_t in enumerate(steps):
+            with annotate("repro.sim.step"):
+                if t % k_refresh == 0:
+                    cs = core.refresh_aggregates(cs)
+                if events is None:
+                    cs, out = core.apply_events(gen, cs)
+                else:
+                    cs, out = core.observe_events(cs,
+                                                  tree_to(events[t], device))
 
-            # 4. arrivals, admitted against the maintained aggregate ------
-            valid = arange_a < stream_t.n_arrivals[..., None]
-            cand = core.candidates(rows[t])
-            cs, accept = core.decide_batch(policy, cs, out.util, cand,
-                                           stream_t, valid)
-            n_acc = torch.sum(accept.to(F32), dim=-1)
-            n_rej = torch.sum(valid.to(F32), dim=-1) - n_acc
-            slots, util_end = _accumulate_step(cs.slots, out, n_acc, n_rej,
-                                               cfg.dt)
-            cs = cs._replace(slots=slots)
-            util_trace.append(util_end)
-            fail_trace.append(out.failed)
-            accepts.append(accept)
-        metrics = _run_metrics(cfg, cs.slots, torch.stack(util_trace, dim=-1),
-                               torch.stack(fail_trace, dim=-1))
-        result = (metrics,)
-        if record_decisions:
-            result += (torch.stack(accepts, dim=-2),)
+                # 4. arrivals, admitted against the maintained aggregate --
+                valid = arange_a < stream_t.n_arrivals[..., None]
+                cand = core.candidates(rows[t])
+                cs, accept = core.decide_batch(policy, cs, out.util, cand,
+                                               stream_t, valid)
+                n_acc = torch.sum(accept.to(F32), dim=-1)
+                n_rej = torch.sum(valid.to(F32), dim=-1) - n_acc
+                slots, util_end = _accumulate_step(cs.slots, out, n_acc,
+                                                   n_rej, cfg.dt)
+                cs = cs._replace(slots=slots)
+                util_trace.append(util_end)
+                fail_trace.append(out.failed)
+                accepts.append(accept)
+        with annotate("repro.sim.metrics"):
+            metrics = _run_metrics(cfg, cs.slots,
+                                   torch.stack(util_trace, dim=-1),
+                                   torch.stack(fail_trace, dim=-1))
+            result = (metrics,)
+            if record_decisions:
+                result += (torch.stack(accepts, dim=-2),)
         if cfg.telemetry:
             result += (cs.tel,)
         return result if len(result) > 1 else metrics
@@ -485,19 +493,23 @@ def run_keyed_batch(run_fn, seeds, policy: PolicyParams, *,
     policy entry and stream alongside), and the padded runs are sliced off
     before returning. Each run of a batch gets the bits it gets alone, so
     the result equals one batch on one device bit for bit."""
-    seeds = list(seeds)
-    devices = _batch_devices(run_fn, devices)
-    if len(devices) <= 1:
-        run = run_fn if not devices else _run_on(run_fn, devices[0])
-        return run(seeds, policy, stream=streams)
-    n_runs = len(seeds)
-    leads = (0, getattr(run_fn, "policy_lead", 0), 0)
-    args = _pad_batch((seeds, policy, streams), leads,
-                      (-n_runs) % len(devices))
-    out = shard_batch_over_devices(
-        lambda d, s, p, st: _run_on(run_fn, d)(s, p, stream=st), devices,
-        args, leads)
-    return _batch_map(lambda x: x[:n_runs], out)
+    with annotate("repro.sim.batch"):
+        seeds = list(seeds)
+        devices = _batch_devices(run_fn, devices)
+        if len(devices) <= 1:
+            run = run_fn if not devices else _run_on(run_fn, devices[0])
+            return run(seeds, policy, stream=streams)
+        n_runs = len(seeds)
+        leads = (0, getattr(run_fn, "policy_lead", 0), 0)
+        args = _pad_batch((seeds, policy, streams), leads,
+                          (-n_runs) % len(devices))
+
+        def chunk(d, s, p, st):
+            with annotate("repro.sim.batch"):
+                return _run_on(run_fn, d)(s, p, stream=st)
+
+        out = shard_batch_over_devices(chunk, devices, args, leads)
+        return _batch_map(lambda x: x[:n_runs], out)
 
 
 def run_batch(run_fn, seed: int, policy: PolicyParams, n_runs: int, *,
@@ -675,60 +687,70 @@ def make_fleet_run(fcfg: FleetConfig, horizon_grid, policy_kind: int,
         else:
             gens, runs = [_generator(gen_or_seed, device)], None
         lead = (n_c,) if runs is None else (runs, n_c)
-        policy = broadcast_policy(tree_to(policy, device), n_c, runs)
-        stream = _run_stream(source, scfg, gens, batch, stream, device)
         for name, seq in (("events", events), ("route_draws", route_draws)):
             if seq is not None and len(seq) != n_steps:
                 raise ValueError(f"{name} has {len(seq)} steps, the run "
                                  f"{n_steps}")
+        with annotate("repro.sim.stream"):
+            policy = broadcast_policy(tree_to(policy, device), n_c, runs)
+            stream = _run_stream(source, scfg, gens, batch, stream, device)
+            rows = _steps(core.candidate_rows(stream))
+            steps = _steps(stream)
         fleet = [fleet_generators(g, n_c) for g in gens]
         event_gens = [g for fg in fleet for g in fg[:n_c]]
         route_gen = [fg[n_c] for fg in fleet] if batch else fleet[0][n_c]
-        cs = core.init(lead)
-        rej_all = torch.zeros(lead[:-1], dtype=F32, device=device)
+        with annotate("repro.sim.init"):
+            cs = core.init(lead)
+            rej_all = torch.zeros(lead[:-1], dtype=F32, device=device)
         util_trace, fail_trace, accepts, assigns = [], [], [], []
-        rows = _steps(core.candidate_rows(stream))
-        for t, stream_t in enumerate(_steps(stream)):
-            if t % k_refresh == 0:
-                cs = core.refresh_aggregates(cs)
-            ev = (_sample_tables(core, event_gens, cs.slots) if events is None
-                  else tree_to(events[t], device))
-            cs, out = core.observe_events(cs, ev, caps)
+        for t, stream_t in enumerate(steps):
+            with annotate("repro.sim.step"):
+                if t % k_refresh == 0:
+                    cs = core.refresh_aggregates(cs)
+                ev = (_sample_tables(core, event_gens, cs.slots)
+                      if events is None else tree_to(events[t], device))
+                cs, out = core.observe_events(cs, ev, caps)
 
-            # 4. route the fleet-wide arrivals, then admit per cluster ------
-            valid = arange_a < stream_t.n_arrivals[..., None]
-            cand = core.candidates(rows[t])
-            ctx = RouteContext(cand=cand, c0=stream_t.c0, valid=valid,
-                               agg_el=cs.agg_el, agg_vl=cs.agg_vl,
-                               util=out.util, capacities=caps, policy=policy)
-            draws = (router.draw(route_gen, ctx) if route_draws is None
-                     else tree_to(route_draws[t], device))
-            assign = torch.clamp(router.assign(ctx, draws), 0, n_c)
-            mask = valid[..., None, :] & (assign[..., None, :]
-                                          == arange_c[:, None])   # [C, A]
-            rej_all = rej_all + torch.sum((valid & (assign == n_c)).to(F32),
-                                          dim=-1)
-            cand_c = MomentCurves(*(x[..., None, :, :].expand(
-                *x.shape[:-2], n_c, *x.shape[-2:]) for x in cand))
-            cs, accept = core.decide_batch(policy, cs, out.util, cand_c,
-                                           _to_clusters(stream_t, n_c), mask)
-            n_acc = torch.sum(accept.to(F32), dim=-1)
-            n_rej = torch.sum(mask.to(F32), dim=-1) - n_acc
-            slots, util_end = _accumulate_step(cs.slots, out, n_acc, n_rej,
-                                               cfg.dt)
-            cs = cs._replace(slots=slots)
-            util_trace.append(util_end)
-            fail_trace.append(out.failed)
+                # 4. route the fleet-wide arrivals, then admit per cluster --
+                valid = arange_a < stream_t.n_arrivals[..., None]
+                cand = core.candidates(rows[t])
+                with annotate("repro.sim.route"):
+                    ctx = RouteContext(cand=cand, c0=stream_t.c0, valid=valid,
+                                       agg_el=cs.agg_el, agg_vl=cs.agg_vl,
+                                       util=out.util, capacities=caps,
+                                       policy=policy)
+                    draws = (router.draw(route_gen, ctx)
+                             if route_draws is None
+                             else tree_to(route_draws[t], device))
+                    assign = torch.clamp(router.assign(ctx, draws), 0, n_c)
+                mask = valid[..., None, :] & (assign[..., None, :]
+                                              == arange_c[:, None])  # [C, A]
+                rej_all = rej_all + torch.sum(
+                    (valid & (assign == n_c)).to(F32), dim=-1)
+                cand_c = MomentCurves(*(x[..., None, :, :].expand(
+                    *x.shape[:-2], n_c, *x.shape[-2:]) for x in cand))
+                cs, accept = core.decide_batch(policy, cs, out.util, cand_c,
+                                               _to_clusters(stream_t, n_c),
+                                               mask)
+                n_acc = torch.sum(accept.to(F32), dim=-1)
+                n_rej = torch.sum(mask.to(F32), dim=-1) - n_acc
+                slots, util_end = _accumulate_step(cs.slots, out, n_acc,
+                                                   n_rej, cfg.dt)
+                cs = cs._replace(slots=slots)
+                util_trace.append(util_end)
+                fail_trace.append(out.failed)
+                if record_decisions:
+                    accepts.append(accept)
+                    assigns.append(assign)
+        with annotate("repro.sim.metrics"):
+            metrics = _fleet_metrics(cfg, caps, cs.slots,
+                                     torch.stack(util_trace, dim=-1),
+                                     torch.stack(fail_trace, dim=-1),
+                                     rej_all)
+            result = (metrics,)
             if record_decisions:
-                accepts.append(accept)
-                assigns.append(assign)
-        metrics = _fleet_metrics(cfg, caps, cs.slots,
-                                 torch.stack(util_trace, dim=-1),
-                                 torch.stack(fail_trace, dim=-1), rej_all)
-        result = (metrics,)
-        if record_decisions:
-            result += (torch.stack(accepts, dim=-3),
-                       torch.stack(assigns, dim=-2))
+                result += (torch.stack(accepts, dim=-3),
+                           torch.stack(assigns, dim=-2))
         if cfg.telemetry:
             result += (cs.tel,)
         return result if len(result) > 1 else metrics

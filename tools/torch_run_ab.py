@@ -2,7 +2,7 @@
 """The port's single simulator run on one CUDA card, for one or more
 checkouts of the port, in turns.
 
-    python3 tools/torch_run_ab.py [--roots A B] [--order ABBA] [--out DIR]
+    python3 tools/torch_run_ab.py [--roots A B] [--order ABBA]
 
 Each turn is one process that imports ``repro_torch`` from ``ROOT/src`` of
 one checkout (building its kernels into that checkout's ``build/``) and
@@ -11,11 +11,11 @@ runs ``chip_smoke.py`` phase 4's SECOND run: ``make_run`` at PAPER_FULL
 rho 0.112, seed 2018, twice, timing each run's wall (steps/s) and printing
 its metrics; then the one-run aggregate kernel's device time at D = 8,192,
 N = 48, ND = 24 (``chip_smoke.graph_ms``, a CUDA graph of 50 calls, median
-of 7 replays); then the checkout's own ``tools/torch_step_profile.py`` (one
-run: CUDA kernels a step, host ms a step, device idle share). Turns run in
-the order given (A B B A by default), so two versions are compared on one
-card in one call. Prints one JSON object a turn and the card's name and
-power limit; with ``--out``, the profiles go to DIR as well.
+of 7 replays). Turns run in the order given (A B B A by default), so two
+versions are compared on one card in one call. Prints one JSON object a
+turn and the card's name and power limit. A step's layers, by name, are
+the simulator's ``repro.sim.*`` profiler ranges: wrap a run in
+``torch.profiler`` to see them.
 """
 import argparse
 import json
@@ -67,8 +67,6 @@ def main():
                     help="checkouts, named A, B, ... in --order")
     ap.add_argument("--order", default=None,
                     help="turns by letter; default ABBA (A with one root)")
-    ap.add_argument("--out", default=None,
-                    help="directory for each turn's step profile")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -87,20 +85,7 @@ def main():
         res = subprocess.run([sys.executable, __file__, "--turn", root],
                              check=True, capture_output=True, text=True)
         rec = json.loads(res.stdout.strip().splitlines()[-1])
-        prof = subprocess.run(
-            [sys.executable, str(Path(root) / "tools" /
-                                 "torch_step_profile.py")],
-            check=True, capture_output=True, text=True).stdout
-        prof = json.loads(prof[prof.index("{"):])
-        if args.out:
-            Path(args.out).mkdir(parents=True, exist_ok=True)
-            (Path(args.out) / f"profile_{i + 1}_{letter}.json").write_text(
-                json.dumps(prof, indent=1))
-        rec.update(turn_no=i + 1, letter=letter, profile={
-            k: prof.get(k) for k in ("wall_ms_per_step",
-                                     "cuda_kernels_per_step",
-                                     "device_busy_ms_per_step",
-                                     "device_idle_share")})
+        rec.update(turn_no=i + 1, letter=letter)
         print(json.dumps(rec), flush=True)
 
 
